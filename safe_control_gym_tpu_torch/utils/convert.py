@@ -1,0 +1,55 @@
+"""State carried across from the JAX package: its pytrees, given as numpy, to the port's types.
+
+The tests start both packages from one state this way. A JAX ``EnvState`` of a
+batch is passed as a dict of numpy arrays (``state``, ``ctrl_step``, the
+``dyn_params`` fields as a dict, ``dist_obs``, ``dist_act``, ``dist_dyn``); its
+PRNG ``key`` has no counterpart (the port takes ``torch.Generator``\\ s) and is
+ignored, as are the adversary buffers, which must be unset.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from safe_control_gym_tpu_torch.envs.benchmark_env import EnvState
+from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams
+from safe_control_gym_tpu_torch.utils.device import resolve_device
+
+__all__ = ['cartpole_params_from_numpy', 'env_state_from_numpy']
+
+
+def cartpole_params_from_numpy(d, device='cuda') -> CartPoleParams:
+    """``CartPoleParams`` from a dict of numpy scalars or per-env arrays. The
+    port shares one parameter set across a batch, so per-env arrays must hold
+    one value."""
+    dev = resolve_device(device)
+    out = {}
+    for name in ('pole_length', 'pole_mass', 'cart_mass', 'gravity'):
+        v = np.asarray(d[name], np.float32).ravel()
+        if v.size == 0 or np.any(v != v[0]):
+            raise NotImplementedError(
+                f'{name}: per-env inertial parameters come with the '
+                'domain-randomization slice of the port')
+        out[name] = torch.tensor(v[0], dtype=torch.float32, device=dev)
+    return CartPoleParams(**out)
+
+
+def env_state_from_numpy(d, device='cuda') -> EnvState:
+    """The port's batched ``EnvState`` from a JAX ``EnvState`` given as a dict
+    of numpy arrays."""
+    dev = resolve_device(device)
+    if np.any(np.asarray(d.get('adv_valid', False))):
+        raise NotImplementedError('adversary actions come with the RARL/RAP '
+                                  'slice of the port')
+    # torch.tensor copies: arrays read from JAX are not writable.
+    state = torch.tensor(np.asarray(d['state'], np.float32), device=dev)
+    n = state.shape[0]
+    f32 = lambda k: torch.tensor(np.asarray(d[k], np.float32).reshape(n, -1),
+                                 device=dev)
+    return EnvState(
+        state=state,
+        ctrl_step=torch.tensor(np.asarray(d['ctrl_step'], np.int32), device=dev),
+        dyn_params=cartpole_params_from_numpy(d['dyn_params'], dev),
+        dist_obs=f32('dist_obs'), dist_act=f32('dist_act'),
+        dist_dyn=f32('dist_dyn'))
