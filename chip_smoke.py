@@ -1,27 +1,32 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its
-kernels, then drive the batched cartpole rollout through the port's entry points.
+kernels, then drive the batched cartpole and quadrotor rollouts through the
+port's entry points.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
   1. card      the card's name and power limit (nvidia-smi);
-  2. build     nvcc of every csrc/*.cu, timed;
-  3. k1        K1 (cartpole_advance) against its plain version at B=4096;
-  4. k4        K4 (cartpole_rollout) against its plain version at B=4096 in three
+  2. build     nvcc of every csrc/*.cu, one process per source, timed;
+  3. k1, k2, k3  the per-step physics kernels (cartpole_advance, quad2d_advance,
+               quad3d_advance) against their plain versions at B=4096;
+  4. k4, k5    the whole-rollout kernels (cartpole_rollout; quad2d_rollout and
+               quad3d_rollout) against their plain versions at B=4096 in three
                modes: replay, tracking with quadratic cost, constrained with
                white action noise and Philox draws;
-  5. main_path make('cartpole', device='cuda') -> measure_batched (per-step
-               path, K1) and measure_rollout_kernel (whole-rollout path, K4)
-               plain, constrained and tracking, with the launch counters set to 0
-               before and read after;
-  6. welch     the stochastic K4 against the per-step path in distribution;
-  7. kernels   one line per kernel with its launches, error, times and bound.
+  5. main_path make(..., device='cuda') -> measure_batched (per-step path, K1,
+               K2, K3) plain and constrained, and measure_rollout_kernel
+               (whole-rollout path, K4, K5) on the reference benchmark's rows,
+               with every launch counter set to 0 before and read after;
+  6. welch     the stochastic K4 and K5 against the per-step path in
+               distribution;
+  7. kernels   one entry per kernel with its launches, error, times and bound.
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -38,20 +43,48 @@ PEAK_OPS_PER_S = 67e12
 
 B = 4096
 N_SUB, DT = 20, 1e-3
-T_CHECK = 300          # K4 against its per-step plain version
+T_CHECK = {'cartpole': 300, 'quadrotor': 150, 'quadrotor_3D': 150}  # against the plain version
 T_PER_STEP = 1024      # the per-step path of the main path
 T_ROLLOUT = 131072     # the whole-rollout path of the main path
 T_WELCH = 1024
 
-# Operations per env and substep of the cartpole update (sin, cos, the
-# reciprocal and 28 multiplies, adds and subtracts), and per env and control
-# step of K4's other work: Philox4x32-10 (10 rounds of 2 mul-hi/lo pairs,
-# 4 xors and 2 key adds) per 4 words, uniform conversion, Box-Muller, action
-# pipeline, reward, done, violations and reset.
-OPS_SUBSTEP = 31
+# Operations per env and physics substep (sin and cos count one each):
+# cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
+# 2D quad: one sin/cos pair and 16 others; 3D quad: three sin/cos pairs,
+# three divides and 60 others. Per env and call, the hoisted invariants.
+OPS_SUBSTEP = {'cartpole': 31, 'quadrotor': 18, 'quadrotor_3D': 69}
+OPS_INVARIANT = {'cartpole': 10, 'quadrotor': 10, 'quadrotor_3D': 25}
+# Philox4x32-10 (10 rounds of 2 mul-hi/lo pairs, 4 xors and 2 key adds) per
+# four words, and the four uniform conversions.
 OPS_PHILOX = 10 * 10
-OPS_STEP_REST = {'uniform': 3 * 4, 'box_muller': 8, 'action': 6, 'reward': 20,
+OPS_UNIFORM4 = 3 * 4
+# K4's other work per env and control step.
+OPS_STEP_REST = {'uniform': OPS_UNIFORM4, 'box_muller': 8, 'action': 6, 'reward': 20,
                  'done': 12, 'violation': 12, 'reset': 12}
+
+SYSTEMS = ('cartpole', 'quadrotor', 'quadrotor_3D')
+NX = {'cartpole': 4, 'quadrotor': 6, 'quadrotor_3D': 12}
+NU = {'cartpole': 1, 'quadrotor': 2, 'quadrotor_3D': 4}
+N_OOB = {'quadrotor': 3, 'quadrotor_3D': 6}
+QUAD_TYPE = {'quadrotor': 2, 'quadrotor_3D': 3}
+
+SRC = 'safe_control_gym_tpu_torch/csrc/'
+PHYSICS = {  # per-step physics kernel of each system
+    'cartpole': dict(id='K1', name='cartpole_advance', source=SRC + 'cartpole_kernels.cu',
+                     replaces='safe_control_gym_tpu/ops/pallas_kernels.py:86'),
+    'quadrotor': dict(id='K2', name='quad2d_advance', source=SRC + 'quad_kernels.cu',
+                      replaces='safe_control_gym_tpu/ops/pallas_kernels.py:190'),
+    'quadrotor_3D': dict(id='K3', name='quad3d_advance', source=SRC + 'quad_kernels.cu',
+                         replaces='safe_control_gym_tpu/ops/pallas_kernels.py:322'),
+}
+ROLLOUT = {  # whole-rollout kernel of each system
+    'cartpole': dict(id='K4', name='cartpole_rollout', source=SRC + 'cartpole_kernels.cu',
+                     replaces='safe_control_gym_tpu/ops/rollout_kernels.py:427'),
+    'quadrotor': dict(id='K5', name='quad2d_rollout', source=SRC + 'quad_kernels.cu',
+                      replaces='safe_control_gym_tpu/ops/rollout_kernels.py:850'),
+    'quadrotor_3D': dict(id='K5', name='quad3d_rollout', source=SRC + 'quad_kernels.cu',
+                         replaces='safe_control_gym_tpu/ops/rollout_kernels.py:850'),
+}
 
 
 def emit(phase, **fields):
@@ -89,53 +122,82 @@ def time_ms(fn, reps, primed=True):
     return e0.elapsed_time(e1) / reps
 
 
-def check_k1(dev):
-    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
+def _physics_args(system, dev):
+    """Inputs of the per-step physics kernel at B envs, drawn from a seed."""
     g = torch.Generator(device=dev).manual_seed(0)
     u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
-    states, forces, tab = u((B, 4), -0.3, 0.3), u((B,), -10.0, 10.0), u((B, 2), -0.5, 0.5)
-    params = torch.tensor([0.1, 1.0, 0.5, 9.8], device=dev)
-    args = (states, forces, tab, params, N_SUB, DT)
-    err = float((pk.cartpole_advance(*args) - pk.cartpole_advance_plain(*args)).abs().max())
+    if system == 'cartpole':
+        return (u((B, 4), -0.3, 0.3), u((B,), -10.0, 10.0), u((B, 2), -0.5, 0.5),
+                torch.tensor([0.1, 1.0, 0.5, 9.8], device=dev))
+    if system == 'quadrotor':
+        states = torch.stack([u((B,), -1, 1), u((B,), -0.5, 0.5), u((B,), 0.5, 1.5),
+                              u((B,), -0.5, 0.5), u((B,), -1, 1), u((B,), -3, 3)], 1)
+        return (states.contiguous(), u((B,), 0.05, 0.2), u((B,), 0.05, 0.2),
+                u((B, 2), -0.01, 0.01), torch.tensor([0.027, 1.4e-5, 0.0397, 9.8], device=dev))
+    states = u((B, 12), -0.5, 0.5)
+    states[:, 4] += 1.0
+    states[:, 6:9] = u((B, 3), -0.8, 0.8)
+    hover = 0.027 * 9.8 / 4
+    return (states.contiguous(), u((B, 4), 0.5 * hover, 1.5 * hover), u((B,), -1e-6, 1e-6),
+            u((B, 3), -0.01, 0.01),
+            torch.tensor([0.027, 1.4e-5, 1.4e-5, 2.17e-5, 0.0397, 9.8], device=dev))
+
+
+def check_physics(system, dev):
+    """K1, K2 or K3 against its plain version, timed."""
+    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
+    meta = PHYSICS[system]
+    kernel, plain = getattr(pk, meta['name']), getattr(pk, meta['name'] + '_plain')
+    args = (*_physics_args(system, dev), N_SUB, DT)
+    err = float((kernel(*args) - plain(*args)).abs().max())
     torch.cuda.synchronize()
     if not err <= 1e-5:
-        raise RuntimeError(f'K1 disagrees with its plain version: max abs err {err}')
-    ms = time_ms(lambda: pk.cartpole_advance(*args), 200)
-    # The plain version's ~600 launches a call are its cost: timed unprimed.
-    plain_ms = time_ms(lambda: pk.cartpole_advance_plain(*args), 5, primed=False)
-    launch_bound_ms = time_ms(lambda: pk.cartpole_advance(*args), 200, primed=False)
-    n_bytes = B * (16 + 4 + 8 + 16) + 16
-    b_ms, b_by = bound_ms(n_bytes, B * (N_SUB * OPS_SUBSTEP + 10))
-    row = dict(name='cartpole_advance', route='cuda',
-               source='safe_control_gym_tpu_torch/csrc/cartpole_kernels.cu',
-               replaces='safe_control_gym_tpu/ops/pallas_kernels.py:86',
-               max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None,
+        raise RuntimeError(f'{meta["id"]} disagrees with its plain version: max abs err {err}')
+    ms = time_ms(lambda: kernel(*args), 200)
+    # The plain version's hundreds of launches a call are its cost: timed unprimed.
+    plain_ms = time_ms(lambda: plain(*args), 5, primed=False)
+    back_to_back_ms = time_ms(lambda: kernel(*args), 200, primed=False)
+    n_bytes = sum(a.numel() * 4 for a in args[:-2]) + B * NX[system] * 4
+    b_ms, b_by = bound_ms(n_bytes, B * (N_SUB * OPS_SUBSTEP[system] + OPS_INVARIANT[system]))
+    row = dict(name=meta['name'], route='cuda', source=meta['source'],
+               replaces=meta['replaces'], max_abs_err=err, ms=ms, kernel_ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                library_note='no single PyTorch call computes n_substeps of this update',
-               back_to_back_ms=launch_bound_ms, shape=f'B={B} n_substeps={N_SUB}')
-    emit('k1', tol=1e-5, **row)
+               back_to_back_ms=back_to_back_ms, shape=f'B={B} n_substeps={N_SUB}',
+               id=meta['id'])
+    emit(meta['id'].lower(), tol=1e-5, **row)
     return row
 
 
-def _k4_cases(dev):
-    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _env_kwargs
+def _plain_rollout(system):
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    if system == 'cartpole':
+        return rk.cartpole_rollout_plain
+    return functools.partial(rk.quad_rollout_plain, QUAD_TYPE[system])
+
+
+def _rollout_cases(system, dev, T):
+    """(name, state0, cfg, kwargs) of the three checked modes of ``system``."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     from safe_control_gym_tpu_torch.utils.registration import make
     g = torch.Generator(device=dev).manual_seed(1)
-    replay = -10 + 20 * torch.rand((T_CHECK, B), generator=g, device=dev)
     cases = []
-    for name, env_kw, mode in [
-            ('replay_stabilization_rl_reward', _env_kwargs('cartpole', False),
-             dict(actions=replay, draw_actions=False)),
-            ('tracking_quadratic', dict(_env_kwargs('cartpole', False, tracking=True),
-                                        cost='quadratic'), {}),
-            ('constrained_noise_draws', _env_kwargs('cartpole', True),
-             dict(constrained=True))]:
-        env = make('cartpole', device=dev, **env_kw)
-        cfg = rk.cartpole_rollout_cfg(env)
-        if mode.get('constrained'):
-            cfg[rk._C['NOISE_STD']] = float(env.disturbances['action'].disturbances[0].std[0])
+    for name, constrained, tracking, over in [
+            ('replay_stabilization_rl_reward', False, False, {}),
+            ('tracking_quadratic', False, True, dict(cost='quadratic')),
+            ('constrained_noise_draws', True, False, {})]:
+        env = make(system.replace('_3D', ''), device=dev,
+                   **bs._env_kwargs(system, constrained, tracking), **over)
+        cfg = bs._kernel_cfg(system, env, constrained)
         states, _ = env.func.reset_batch(g, B)
+        mode = dict(constrained=constrained)
+        if name.startswith('replay'):
+            lo = torch.as_tensor(env.action_space.low, device=dev)
+            hi = torch.as_tensor(env.action_space.high, device=dev)
+            actions = lo + (hi - lo) * torch.rand((T, B, NU[system]), generator=g, device=dev)
+            mode = dict(actions=actions[..., 0] if system == 'cartpole' else actions,
+                        draw_actions=False)
         kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
                   randomized_reset=env.RANDOMIZED_INIT, **mode,
                   **rk.rollout_task_kwargs(env))
@@ -143,36 +205,57 @@ def _k4_cases(dev):
     return cases
 
 
-def k4_ops_per_env_step(kw):
-    ops = N_SUB * OPS_SUBSTEP + OPS_STEP_REST['action'] + OPS_STEP_REST['reward'] \
-        + OPS_STEP_REST['done'] + OPS_STEP_REST['reset']
-    if kw.get('draw_actions', True) or kw.get('constrained'):
-        ops += OPS_PHILOX + OPS_STEP_REST['uniform']
-    if kw.get('randomized_reset'):
-        ops += OPS_PHILOX + OPS_STEP_REST['uniform']
+def rollout_ops(system, kw, T, done_total=0.0):
+    """Operations of a B-env, T-step rollout in mode ``kw``; ``done_total`` is
+    the run's summed done count (fresh states are drawn only where done)."""
+    if system == 'cartpole':
+        ops = N_SUB * OPS_SUBSTEP[system] + OPS_STEP_REST['action'] \
+            + OPS_STEP_REST['reward'] + OPS_STEP_REST['done'] + OPS_STEP_REST['reset']
+        if kw.get('draw_actions', True) or kw.get('constrained'):
+            ops += OPS_PHILOX + OPS_STEP_REST['uniform']
+        if kw.get('randomized_reset'):
+            ops += OPS_PHILOX + OPS_STEP_REST['uniform']
+        if kw.get('constrained'):
+            ops += OPS_STEP_REST['box_muller'] + OPS_STEP_REST['violation']
+        return B * T * ops
+    nx, nu = NX[system], NU[system]
+    ops = N_SUB * OPS_SUBSTEP[system] + OPS_INVARIANT[system]
+    ops += nu * (4 + 9)                  # denormalize, clip; motor model
+    ops += 6 if nx == 6 else 19          # rotor forces (and yaw torque)
+    ops += nx * 6 + nu * 4 + 2           # reward
+    ops += N_OOB[system] * 4 + 4         # done
+    ops += 3                             # accumulators
+    if kw.get('draw_actions', True):
+        ops += OPS_PHILOX + OPS_UNIFORM4 + 2 * nu
     if kw.get('constrained'):
-        ops += OPS_STEP_REST['box_muller'] + OPS_STEP_REST['violation']
-    return ops
+        ops += OPS_PHILOX + OPS_UNIFORM4 + nu // 2 * 13 + (nx + nu) * 4
+    n = B * T * ops
+    reset_words = (nx + 3) // 4 * (OPS_PHILOX + OPS_UNIFORM4) if kw.get('randomized_reset') else 0
+    return n + done_total * (reset_words + 2 * nx)
 
 
-def k4_bytes(kw, T):
-    n = B * (16 + 16 + 4 * 4) + 40 * 4
+def rollout_bytes(system, kw, T):
+    nx = NX[system]
+    n = B * (nx * 4 + nx * 4 + 4 * 4) + (40 if system == 'cartpole' else 105) * 4
     if not kw.get('draw_actions', True):
-        n += T * B * 4
+        n += T * B * NU[system] * 4
     if 'x_goal' in kw:
         n += kw['x_goal'].numel() * 4
     return n
 
 
-def check_k4(dev):
-    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+def check_rollout(system, dev):
+    """K4 or K5 against its plain version in three modes, timed."""
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
+    meta, T = ROLLOUT[system], T_CHECK[system]
+    kernel, plain = _kernel(system)[1], _plain_rollout(system)
     worst = 0.0
     row = None
-    for name, s0, cfg, kw in _k4_cases(dev):
-        k = rk.cartpole_rollout(s0, cfg, 7, T_CHECK, **kw)
+    for name, s0, cfg, kw in _rollout_cases(system, dev, T):
+        k = kernel(s0, cfg, 7, T, **kw)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        p = rk.cartpole_rollout_plain(s0, cfg, 7, T_CHECK, **kw)
+        p = plain(s0, cfg, 7, T, **kw)
         e1.record()
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
@@ -184,61 +267,75 @@ def check_k4(dev):
         ok = (state_err <= 1e-4 and bool(((k['reward_sum'] - p['reward_sum']).abs()
                                            <= 1e-4 + 1e-4 * p['reward_sum'].abs()).all())
               and not any(flips.values()))
-        emit('k4', case=name, T=T_CHECK, B=B, state_err=state_err, reward_err=rew_err,
-             reward_tol_min=rew_tol, envs_with_other_counts=flips, ok=ok,
+        emit(meta['id'].lower(), kernel=meta['name'], case=name, T=T, B=B,
+             state_err=state_err, reward_err=rew_err, reward_tol_min=rew_tol,
+             envs_with_other_counts=flips, ok=ok,
              mean_done_count=float(k['done_count'].mean()),
              mean_violation_count=float(k['violation_count'].mean()))
         if not ok:
             raise RuntimeError(
-                f'K4 disagrees with its plain version on {name}: state err {state_err} '
-                f'(tol 1e-4), reward err {rew_err} (tol 1e-4 + 1e-4|r|), envs whose '
-                f'counts differ {flips} (must be none: both draw the same Philox '
+                f'{meta["name"]} disagrees with its plain version on {name}: state err '
+                f'{state_err} (tol 1e-4), reward err {rew_err} (tol 1e-4 + 1e-4|r|), envs '
+                f'whose counts differ {flips} (must be none: both draw the same Philox '
                 'numbers and round the same float ops)')
         worst = max(worst, state_err, rew_err)
         if name == 'constrained_noise_draws':
-            ms = time_ms(lambda: rk.cartpole_rollout(s0, cfg, 8, T_CHECK, **kw), 5)
+            ms = time_ms(lambda: kernel(s0, cfg, 8, T, **kw), 5)
             warp_s0 = s0[:32].contiguous()
-            one_warp_ms = time_ms(lambda: rk.cartpole_rollout(warp_s0, cfg, 8, T_CHECK,
-                                                              **kw), 5)
-            b_ms, b_by = bound_ms(k4_bytes(kw, T_CHECK), B * T_CHECK * k4_ops_per_env_step(kw))
-            row = dict(name='cartpole_rollout', route='cuda',
-                       source='safe_control_gym_tpu_torch/csrc/cartpole_kernels.cu',
-                       replaces='safe_control_gym_tpu/ops/rollout_kernels.py:427',
-                       ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None,
+            one_warp_ms = time_ms(lambda: kernel(warp_s0, cfg, 8, T, **kw), 5)
+            done_total = float(kernel(s0, cfg, 8, T, **kw)['done_count'].sum())
+            b_ms, b_by = bound_ms(rollout_bytes(system, kw, T),
+                                  rollout_ops(system, kw, T, done_total))
+            row = dict(name=meta['name'], route='cuda', source=meta['source'],
+                       replaces=meta['replaces'], ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
                        library_note='no single PyTorch call computes a T-step env rollout',
                        one_warp_ms=one_warp_ms,
-                       shape=f'B={B} T={T_CHECK} constrained, noise and Philox draws')
+                       shape=f'B={B} T={T} constrained, noise and Philox draws',
+                       id=meta['id'])
     row['max_abs_err'] = worst
     return row
 
 
-def main_path(dev, smi):
-    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+# The whole-rollout rows of the reference benchmark (bench.py): plain and
+# constrained for each system, and the cartpole tracking row.
+ROLLOUT_ROWS = [('cartpole', False, False), ('cartpole', True, False),
+                ('cartpole', False, True), ('quadrotor', False, False),
+                ('quadrotor', True, False), ('quadrotor_3D', False, False),
+                ('quadrotor_3D', True, False)]
+
+
+def _counters():
     from safe_control_gym_tpu_torch.ops import physics_kernels as pk
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
-    pk.cartpole_advance.launches = 0
-    rk.cartpole_rollout.launches = 0
+    return [getattr(pk, m['name']) for m in PHYSICS.values()] \
+        + [getattr(rk, m['name']) for m in ROLLOUT.values()]
+
+
+def main_path(dev, smi):
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    for fn in _counters():
+        fn.launches = 0
     rows = {}
-    for constrained in (False, True):
-        su, sps, ex = bs.measure_batched('cartpole', constrained, batch=B,
-                                         n_steps=T_PER_STEP, n_reps=2, device=dev)
-        if not ex['mean_done_count'] > 0:
-            raise RuntimeError(f'per-step path saw no episode end: {ex}')
-        rows[f'per_step constrained={constrained}'] = dict(
-            path='per-step (K1)', batch=B, T=T_PER_STEP, ctrl_steps_per_s=sps,
-            speedup=su, card=smi, **ex)
-    for constrained, tracking in ((False, False), (True, False), (False, True)):
-        if not bs.kernel_covers('cartpole', constrained, tracking, device=dev):
-            raise RuntimeError('the rollout kernel does not cover the benchmark config')
-        su, sps, ex = bs.measure_rollout_kernel('cartpole', constrained, batch=B,
+    for system in SYSTEMS:
+        for constrained in (False, True):
+            su, sps, ex = bs.measure_batched(system, constrained, batch=B,
+                                             n_steps=T_PER_STEP, n_reps=2, device=dev)
+            if not ex['mean_done_count'] > 0:
+                raise RuntimeError(f'per-step path saw no episode end: {system} {ex}')
+            rows[f'per_step {system} constrained={constrained}'] = dict(
+                path=f'per-step ({PHYSICS[system]["id"]})', system=system, batch=B,
+                T=T_PER_STEP, ctrl_steps_per_s=sps, speedup=su, card=smi, **ex)
+    for system, constrained, tracking in ROLLOUT_ROWS:
+        if not bs.kernel_covers(system, constrained, tracking, device=dev):
+            raise RuntimeError(f'the rollout kernel does not cover the {system} config')
+        su, sps, ex = bs.measure_rollout_kernel(system, constrained, batch=B,
                                                 n_steps=T_ROLLOUT, n_reps=3,
                                                 tracking=tracking, device=dev)
-        rows[f'rollout constrained={constrained} tracking={tracking}'] = dict(
-            path='whole-rollout (K4)', batch=B, T=T_ROLLOUT, ctrl_steps_per_s=sps,
-            speedup=su, card=smi, **ex)
-    launches = {'cartpole_advance': pk.cartpole_advance.launches,
-                'cartpole_rollout': rk.cartpole_rollout.launches}
+        rows[f'rollout {system} constrained={constrained} tracking={tracking}'] = dict(
+            path=f'whole-rollout ({ROLLOUT[system]["id"]})', system=system, batch=B,
+            T=T_ROLLOUT, ctrl_steps_per_s=sps, speedup=su, card=smi, **ex)
+    launches = {fn.__name__: fn.launches for fn in _counters()}
     for row_name, row in rows.items():
         emit('main_path', row=row_name, **row)
     emit('main_path', launches=launches)
@@ -262,27 +359,26 @@ def _welch(a, b, label, z=6.0):
 
 def welch(dev):
     from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
-    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
-    from safe_control_gym_tpu_torch.utils.registration import make
-    for constrained in (False, True):
-        env = make('cartpole', device=dev, **bs._env_kwargs('cartpole', constrained))
+    for system, constrained in (('cartpole', False), ('cartpole', True),
+                                ('quadrotor', True), ('quadrotor_3D', True)):
+        env = bs._make(system, constrained, device=dev)
         gen = torch.Generator(device=dev).manual_seed(23)
         states, _ = env.func.reset_batch(gen, B)
-        cfg = bs._kernel_cfg(env, constrained)
-        k = rk.cartpole_rollout(states.state.contiguous(), cfg, 11, T_WELCH,
-                                env.PYB_STEPS_PER_CTRL, env.PYB_TIMESTEP,
-                                constrained=constrained,
-                                randomized_reset=env.RANDOMIZED_INIT)
+        cfg = bs._kernel_cfg(system, env, constrained)
+        k = bs._kernel(system)[1](states.state.contiguous(), cfg, 11, T_WELCH,
+                                  env.PYB_STEPS_PER_CTRL, env.PYB_TIMESTEP,
+                                  constrained=constrained,
+                                  randomized_reset=env.RANDOMIZED_INIT)
         lo = torch.as_tensor(env.action_space.low, device=dev)
         hi = torch.as_tensor(env.action_space.high, device=dev)
-        actions = lo + torch.rand((T_WELCH, B, 1), generator=gen, device=dev) * (hi - lo)
+        actions = lo + torch.rand((T_WELCH, B, NU[system]), generator=gen, device=dev) * (hi - lo)
         _, s = bs.per_step_rollout(env, states, actions, gen)
         keys = ('reward_sum', 'done_count') + (('violation_count',) if constrained else ())
         if not float(k['done_count'].mean()) > 0:
-            raise RuntimeError('stochastic K4 saw no episode end')
+            raise RuntimeError(f'stochastic {ROLLOUT[system]["name"]} saw no episode end')
         for key in keys:
             _welch((k[key] / T_WELCH).cpu().numpy(), (s[key] / T_WELCH).cpu().numpy(),
-                   f'constrained={constrained} {key}/step')
+                   f'{system} constrained={constrained} {key}/step')
 
 
 def main():
@@ -302,22 +398,28 @@ def main():
     libs = _build.build_all()
     emit('build', seconds=time.perf_counter() - t0, flags=_build.NVCC_FLAGS,
          libraries=sorted(libs))
-    k1 = check_k1(dev)
-    k4 = check_k4(dev)
+    physics = {s: check_physics(s, dev) for s in SYSTEMS}
+    rollout = {s: check_rollout(s, dev) for s in SYSTEMS}
     launches, rows = main_path(dev, smi)
     welch(dev)
-    k1['launches'] = launches['cartpole_advance']
-    k4['launches'] = launches['cartpole_rollout']
-    main_row = rows['rollout constrained=True tracking=False']
-    k4['main_path_ms'] = main_row['kernel_ms']
-    k4['main_path_bound_ms'] = bound_ms(
-        k4_bytes({'constrained': True}, T_ROLLOUT),
-        B * T_ROLLOUT * k4_ops_per_env_step({'constrained': True, 'randomized_reset': True}))[0]
-    k4['main_path_shape'] = f'B={B} T={T_ROLLOUT} constrained'
+    for system in SYSTEMS:
+        physics[system]['launches'] = launches[PHYSICS[system]['name']]
+        row = rollout[system]
+        row['launches'] = launches[ROLLOUT[system]['name']]
+        main_row = rows[f'rollout {system} constrained=True tracking=False']
+        row['main_path_ms'] = main_row['kernel_ms']
+        kw = {'constrained': True, 'randomized_reset': system == 'cartpole'}
+        row['main_path_bound_ms'] = bound_ms(
+            rollout_bytes(system, kw, T_ROLLOUT),
+            rollout_ops(system, kw, T_ROLLOUT,
+                        main_row['mean_done_count'] * B))[0]
+        row['main_path_shape'] = f'B={B} T={T_ROLLOUT} constrained'
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    ordered = [physics['cartpole'], physics['quadrotor'], physics['quadrotor_3D'],
+               rollout['cartpole'], rollout['quadrotor'], rollout['quadrotor_3D']]
     kernels = [{**{k: row[k] for k in keys}, **{k: v for k, v in row.items() if k not in keys}}
-               for row in (k1, k4)]
+               for row in ordered]
     emit('done', wall_seconds=time.perf_counter() - t_start, card=smi)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -27,8 +27,8 @@
 // every SM (32 threads a block at B=4096 on 132 SMs): with one thread per
 // env, a larger block would leave most SMs idle.
 //
-// Randomness (K4). A Philox4x32-10 keyed on (seed, 0), counter
-// (env, step, j, 0) for j = 0, 1: eight uint32 per env and step, the
+// Randomness (K4). The Philox4x32-10 of philox.cuh keyed on (seed, 0),
+// counter (env, step, j, 0) for j = 0, 1: eight uint32 per env and step, the
 // kernel's eight random rows. Row 0 is the action draw, rows 1-2 the
 // Box-Muller pair of the action noise, rows 4-7 the fresh auto-reset
 // state; row 3 is the policy mode's exploration noise (closed-loop slice).
@@ -37,13 +37,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
+using scg::kTwoPi;
+using scg::standard_normal;
+using scg::uniform4;
+
 constexpr float kFourThirds = 1.33333333333333333f;
-constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kPi = 3.141592653589793f;
 constexpr float kInv2Pi = 0.15915494309189535f;  // float(1 / (2 pi))
-constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;  // 2^-24
 
 // cfg vector layout (ops/rollout_kernels.py _C).
 enum {
@@ -107,42 +111,6 @@ __global__ void cartpole_advance_kernel(
   out[4 * b + 1] = xd;
   out[4 * b + 2] = th;
   out[4 * b + 3] = thd;
-}
-
-// Philox4x32-10 (Salmon et al., SC'11), in place on the counter.
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
-                                              uint32_t k1) {
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
-    const uint32_t lo0 = 0xD2511F53u * c[0];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
-    const uint32_t lo1 = 0xCD9E8D57u * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0;
-    const uint32_t n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
-
-// Four U[0, 1) floats from the high 24 bits of each Philox word.
-__device__ __forceinline__ void uniform4(uint32_t seed, uint32_t env,
-                                         uint32_t step, uint32_t j,
-                                         float* u) {
-  uint32_t c[4] = {env, step, j, 0u};
-  philox4x32_10(c, seed, 0u);
-  for (int k = 0; k < 4; ++k) u[k] = (float)(c[k] >> 8) * kTwoPow24Inv;
-}
-
-// Box-Muller, cos half only: two uniforms -> one standard normal.
-__device__ __forceinline__ float standard_normal(float u1, float u2) {
-  const float r = sqrtf(-2.0f * logf(fmaxf(u1, 1e-12f)));
-  return r * cosf(kTwoPi * u2);
 }
 
 // ((th + pi) mod 2 pi) - pi with floor semantics, as th - 2pi floor(...).

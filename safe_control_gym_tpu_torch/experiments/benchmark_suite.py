@@ -1,13 +1,14 @@
 """The open-loop rollout benchmark protocol, on the card.
 
-Port of the cartpole part of
-``safe_control_gym_tpu/experiments/benchmark_suite.py``: ``_env_kwargs``,
-``kernel_covers``, ``measure_rollout_kernel`` (the whole-rollout kernel, K4) and
+Port of ``safe_control_gym_tpu/experiments/benchmark_suite.py`` for the
+cartpole and the 2D and 3D quadrotors: ``_env_kwargs``, ``kernel_covers``,
+``measure_rollout_kernel`` (the whole-rollout kernels, K4 and K5) and
 ``measure_batched`` (the per-step path: ``FuncEnv.step_autoreset`` in a Python
-loop, whose physics runs in K1). The protocol is the reference's headline one:
-open-loop random actions, 50 Hz control over 20 physics substeps at 1000 Hz,
-with and without the default constraints and a white-noise action
-disturbance.
+loop, whose physics runs in K1, K2 or K3). The protocol is the reference's
+headline one: open-loop random actions, 50 Hz control over 20 physics
+substeps at 1000 Hz, with and without the default constraints and a
+white-noise action disturbance. ``'quadrotor_3D'`` names the 3D quadrotor,
+made as ``'quadrotor'`` with ``quad_type=3``.
 
 Every measurement runs on a CUDA device and times with CUDA events and
 ``torch.cuda.synchronize()``; it raises where there is none. Each result names
@@ -34,31 +35,52 @@ CONSTRAINTS = [{'constraint_form': 'default_constraint',
 
 DISTURBANCES = {'action': [{'disturbance_func': 'white_noise', 'std': 0.1}]}
 
+_SYSTEMS = ('cartpole', 'quadrotor', 'quadrotor_3D')
+
 
 def _env_kwargs(system, constrained, tracking=False):
-    """The benchmark's env config; ``tracking`` is the reference's circle
-    tracking task."""
-    if system != 'cartpole':
-        raise NotImplementedError(f'{system}: the quadrotors come with slice 2 '
-                                  'of the port')
+    """The benchmark's env config for ``system`` ('cartpole', 'quadrotor' or
+    'quadrotor_3D'); ``tracking`` is the reference's circle tracking task."""
+    if system not in _SYSTEMS:
+        raise ValueError(f'unknown benchmark system {system!r}')
     kw = dict(seed=0, ctrl_freq=50, pyb_freq=1000, episode_len_sec=5)
+    if system != 'cartpole':
+        three_d = system == 'quadrotor_3D'
+        kw.update(quad_type=3 if three_d else 2, randomized_init=False,
+                  init_state={'init_z': 1.0},
+                  task_info={'stabilization_goal': [0, 0, 1] if three_d else [0, 1],
+                             'stabilization_goal_tolerance': 0.0})
     if tracking:
         kw.update(task='traj_tracking', task_info={
             'trajectory_type': 'circle', 'num_cycles': 1,
-            'trajectory_plane': 'zx', 'trajectory_position_offset': [0, 0],
-            'trajectory_scale': 0.2})
+            'trajectory_plane': 'zx',
+            'trajectory_position_offset': [0, 0] if system == 'cartpole' else [0.5, 0],
+            'trajectory_scale': 0.2 if system == 'cartpole' else -0.5})
     if constrained:
         kw.update(constraints=CONSTRAINTS, disturbances=DISTURBANCES)
     return kw
 
 
+def _make(system, constrained, tracking=False, device='cuda'):
+    return make(system.replace('_3D', ''), device=device,
+                **_env_kwargs(system, constrained, tracking))
+
+
+def _kernel(system):
+    """(cfg function, rollout wrapper, cfg layout) of ``system``'s
+    whole-rollout kernel."""
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    return {'cartpole': (rk.cartpole_rollout_cfg, rk.cartpole_rollout, rk._C),
+            'quadrotor': (rk.quad_rollout_cfg, rk.quad2d_rollout, rk._Q),
+            'quadrotor_3D': (rk.quad_rollout_cfg, rk.quad3d_rollout, rk._Q)}[system]
+
+
 def kernel_covers(system, constrained, tracking=False, device='cuda'):
     """True when the whole-rollout kernel covers this benchmark config (its
     cfg function raises ValueError outside coverage)."""
-    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
-    env = make(system, device=device, **_env_kwargs(system, constrained, tracking))
+    env = _make(system, constrained, tracking, device)
     try:
-        rk.cartpole_rollout_cfg(env)
+        _kernel(system)[0](env)
         return True
     except ValueError:
         return False
@@ -66,12 +88,12 @@ def kernel_covers(system, constrained, tracking=False, device='cuda'):
         env.close()
 
 
-def _kernel_cfg(env, constrained):
+def _kernel_cfg(system, env, constrained):
     """The kernel cfg with NOISE_STD set from the env's action disturbance."""
-    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
-    cfg = rk.cartpole_rollout_cfg(env)
+    cfg_fn, _, layout = _kernel(system)
+    cfg = cfg_fn(env)
     if constrained:
-        cfg[rk._C['NOISE_STD']] = float(
+        cfg[layout['NOISE_STD']] = float(
             env.disturbances['action'].disturbances[0].std[0])
     return cfg
 
@@ -89,7 +111,8 @@ def sanity_check(out, t_steps, label):
 
 def measure_rollout_kernel(system, constrained, batch=4096, n_steps=32768,
                            n_reps=3, tracking=False, device='cuda'):
-    """The whole-rollout kernel (K4): the full open-loop workload in one launch.
+    """The whole-rollout kernel (K4 or K5): the full open-loop workload in one
+    launch.
 
     Returns ``(speedup, steps_per_sec, extras)``: the simulated over the wall
     time and the end-to-end rate of the best of ``n_reps`` runs (host clock
@@ -99,9 +122,10 @@ def measure_rollout_kernel(system, constrained, batch=4096, n_steps=32768,
     statistics and the card's name."""
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     dev = require_cuda(device)
-    env = make(system, device=dev, **_env_kwargs(system, constrained, tracking))
+    env = _make(system, constrained, tracking, dev)
     try:
-        cfg = _kernel_cfg(env, constrained)
+        roll = _kernel(system)[1]
+        cfg = _kernel_cfg(system, env, constrained)
         states, _ = env.func.reset_batch(
             torch.Generator(device=dev).manual_seed(0), batch)
         state0 = states.state.contiguous()
@@ -112,7 +136,7 @@ def measure_rollout_kernel(system, constrained, batch=4096, n_steps=32768,
 
         def timed(t_steps):
             # The warm-up run checks the statistics before any timing.
-            out = rk.cartpole_rollout(state0, cfg, 1, n_steps=t_steps, **kw)
+            out = roll(state0, cfg, 1, n_steps=t_steps, **kw)
             torch.cuda.synchronize(dev)
             warm = sanity_check(out, t_steps, f'{system} constrained={constrained} '
                                 f'tracking={tracking}') \
@@ -123,7 +147,7 @@ def measure_rollout_kernel(system, constrained, batch=4096, n_steps=32768,
                 e1 = torch.cuda.Event(enable_timing=True)
                 t0 = time.perf_counter()
                 e0.record()
-                rk.cartpole_rollout(state0, cfg, 2 + i, n_steps=t_steps, **kw)
+                roll(state0, cfg, 2 + i, n_steps=t_steps, **kw)
                 e1.record()
                 torch.cuda.synchronize(dev)
                 best_wall = min(best_wall, time.perf_counter() - t0)
@@ -164,13 +188,13 @@ def per_step_rollout(env, states, actions, gen):
 def measure_batched(system, constrained, batch=4096, n_steps=4096, n_reps=3,
                     device='cuda'):
     """The per-step path: a Python loop of batched ``step_autoreset`` calls on
-    actions drawn up front, the physics of each step in K1.
+    actions drawn up front, the physics of each step in K1, K2 or K3.
 
     Returns ``(speedup, steps_per_sec, extras)`` for the best of ``n_reps``
     runs, timed on the host clock around work that ends in
     ``torch.cuda.synchronize()``."""
     dev = require_cuda(device)
-    env = make(system, device=dev, **_env_kwargs(system, constrained))
+    env = _make(system, constrained, device=dev)
     try:
         gen = torch.Generator(device=dev).manual_seed(0)
         lo = torch.as_tensor(env.action_space.low, device=dev)

@@ -2,24 +2,26 @@
 
 The kernels have a plain C interface (no PyTorch headers), so one ``nvcc``
 call per source takes seconds. The shared libraries go into ``csrc/build/``
-(listed in ``.gitignore``) on first use and are rebuilt when their source is
-newer. Nothing is built or imported when this module is imported: the CPU
+(listed in ``.gitignore``) on first use and are rebuilt when their source or
+any shared header ``csrc/*.cuh`` is newer. Nothing is built or imported when this module is imported: the CPU
 tests import every module of the package on a machine without ``nvcc``.
 
     lib = load_library('cartpole_kernels')   # csrc/cartpole_kernels.cu
+    lib = load_library('quad_kernels')       # csrc/quad_kernels.cu
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
 
-__all__ = ['CSRC_DIR', 'BUILD_DIR', 'NVCC_FLAGS', 'build_all', 'load_library',
-           'check']
+__all__ = ['CSRC_DIR', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'is_stale',
+           'build_all', 'load_library', 'check']
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         'csrc')
@@ -50,11 +52,27 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f'lib{name}.so')
 
 
+def sources(name: str, csrc_dir: str = CSRC_DIR) -> list:
+    """What ``lib<name>.so`` is built from: ``<name>.cu`` and every shared
+    header ``*.cuh`` beside it."""
+    return [os.path.join(csrc_dir, f'{name}.cu'),
+            *sorted(glob.glob(os.path.join(csrc_dir, '*.cuh')))]
+
+
+def is_stale(lib: str, srcs) -> bool:
+    """True when ``lib`` is missing or older than any of ``srcs``."""
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return any(os.path.getmtime(s) > built for s in srcs)
+
+
 def _build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    src = os.path.join(CSRC_DIR, f'{name}.cu')
+    srcs = sources(name)
+    src = srcs[0]
     out = _lib_path(name)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    if not is_stale(out, srcs):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{out}.{os.getpid()}.tmp'

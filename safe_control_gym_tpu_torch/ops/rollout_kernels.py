@@ -1,37 +1,57 @@
-"""K4: the whole open-loop cartpole rollout in one launch, as a CUDA kernel and in
-plain PyTorch.
+"""K4 and K5: the whole open-loop cartpole and quadrotor rollouts in one launch,
+as CUDA kernels and in plain PyTorch.
 
-Port of the cartpole part of ``safe_control_gym_tpu/ops/rollout_kernels.py``:
-``cartpole_rollout_pallas`` and its body ``_cartpole_rollout_kernel``, the cfg
-layout ``_C``, and the cfg function with its coverage gates. The CUDA kernel is
-``cartpole_rollout_kernel`` in ``csrc/cartpole_kernels.cu``.
+Port of ``safe_control_gym_tpu/ops/rollout_kernels.py``:
+
+* K4, cartpole: ``cartpole_rollout_pallas`` and its body
+  ``_cartpole_rollout_kernel``, the cfg layout ``_C`` and
+  ``cartpole_rollout_cfg``, as ``cartpole_rollout_kernel`` in
+  ``csrc/cartpole_kernels.cu``;
+* K5, 2D and 3D quadrotors: ``_quad_rollout_pallas`` and its body
+  ``_quad_rollout_kernel`` with the entries ``quad2d_rollout_pallas`` and
+  ``quad3d_rollout_pallas``, the cfg layout ``_Q``, ``_QUAD_SHAPE`` and
+  ``_quad_rollout_cfg``, as ``quad_rollout_kernel<QT>`` in
+  ``csrc/quad_kernels.cu``;
+
+with the coverage gates of the cfg functions and ``rollout_task_kwargs``.
 
 Each of the T steps runs, per env: the action (a uniform draw or the replayed
-row), denormalize, white-noise action disturbance, clip, K1's substeps, the
-reward (``rl_reward`` or quadratic cost), done on goal / out of bounds / time
-limit, the default-box violation count, and the auto-reset; the state, the
-step counter and three accumulators are written once at the end.
+row), denormalize, white-noise action disturbance, clip, on the quadrotors the
+motor model (cmd -> pwm -> rpm -> forces), the physics substeps of K1, K2 or
+K3, the reward (``rl_reward`` or quadratic cost), done on goal / out of bounds
+/ time limit, the default-box violation count, and the auto-reset; the state,
+the step counter and three accumulators are written once at the end.
 
-Design on the card. The TPU kernel ran ``grid=(T,)`` over lane-major (8, B)
-blocks. Here one thread owns one env and loops over T, so the state, the step
-counter and the accumulators stay in registers for the whole rollout. Replayed
-actions are read as ``actions[t * B + b]`` (coalesced across a warp); a tracking
-env reads its own waypoint ``x_goal[idx]`` directly, which replaces the TPU's
-one-hot matrix gather and its 4096-step cap. At B=4096 one thread per env is
-about one warp per SM, so the kernel is bound by the latency of its serial
-chain (T x n_substeps dependent substeps of sin, cos and a reciprocal), not by
-FLOP/s or bytes.
+Design on the card. The TPU kernels ran ``grid=(T,)`` over lane-major (8, B)
+or (16, B) blocks. Here one thread owns one env and loops over T, so the
+state, the step counter and the accumulators stay in registers for the whole
+rollout. Replayed actions come as one contiguous (T, B, nu) tensor (the
+per-step path's layout; (T, B) for the cartpole) and are read in place; a
+tracking env reads its own waypoint ``x_goal[idx]`` directly, which replaces
+the TPU's one-hot matrix gather and its 4096-step cap. At B=4096 one thread
+per env is about one warp per SM, so the kernels are bound by the latency of
+their serial chain (T x n_substeps dependent substeps), not by FLOP/s or
+bytes.
 
-Randomness. A Philox4x32-10 written out in the kernel, keyed on ``(seed, 0)``
-with the counter ``(env, step, j, 0)`` for j = 0, 1: eight uint32 per env and
-step, the TPU kernel's eight random rows (0: action, 1-2: Box-Muller pair of the
-action noise, 4-7: the fresh auto-reset state; 3 is the policy mode's). A
-uniform is ``(bits >> 8) * 2^-24``; Box-Muller uses the cos half only. The plain
-version runs the same Philox on int64 tensors, so kernel and plain version draw
-identical numbers and can be compared value by value.
+Randomness. A Philox4x32-10 written out in the kernels (``csrc/philox.cuh``),
+keyed on ``(seed, 0)`` with the counter ``(env, step, j, 0)``; each j gives
+four uint32 words. A uniform is ``(bits >> 8) * 2^-24``.
+
+* K4, j = 0, 1: eight words per env and step, the TPU kernel's eight random
+  rows (0: action, 1-2: Box-Muller pair of the action noise, cos half only,
+  4-7: the fresh auto-reset state; 3 is the policy mode's).
+* K5: j = 0 the nu action draws; j = 1 the nu noise uniforms, taken in pairs
+  (u1, u2), each pair giving a cos and a sin Box-Muller normal; j = 2 is
+  reserved for the policy mode's exploration noise; j = 3..5 the nx words of
+  a fresh auto-reset state. Only the words the flags need are drawn.
+
+The plain versions run the same Philox on int64 tensors and repeat the
+kernels' float operations one by one (differences of cfg entries taken in
+float32, hoisted physics terms on 0-d float32 tensors), so kernel and plain
+version draw identical numbers and can be compared value by value.
 
 The closed-loop policy mode (``policy_params``) comes with the closed-loop
-slice; until then the wrapper raises on it.
+slice; until then the wrappers raise on it.
 """
 
 from __future__ import annotations
@@ -44,11 +64,15 @@ import torch
 
 from safe_control_gym_tpu_torch.ops import _build
 from safe_control_gym_tpu_torch.ops._launch import block_size, check_tensor
-from safe_control_gym_tpu_torch.ops.physics_kernels import cartpole_substeps
+from safe_control_gym_tpu_torch.ops.physics_kernels import (cartpole_substeps,
+                                                             quad2d_substeps,
+                                                             quad3d_substeps)
 
 __all__ = ['cartpole_rollout', 'cartpole_rollout_plain', 'cartpole_rollout_cfg',
-           'rollout_task_kwargs', 'philox4x32_10', 'philox_uniform4',
-           'standard_normal', 'wrap_angle', 'CARTPOLE_CFG_LEN']
+           'quad2d_rollout', 'quad3d_rollout', 'quad_rollout_plain',
+           'quad_rollout_cfg', 'rollout_task_kwargs', 'philox4x32_10',
+           'philox_uniform4', 'standard_normal', 'standard_normal_pair',
+           'wrap_angle', 'CARTPOLE_CFG_LEN', 'QUAD_CFG_LEN']
 
 _TWO_PI = 6.283185307179586
 _INV_2PI = 1.0 / _TWO_PI
@@ -72,7 +96,37 @@ _C = dict(
 )
 CARTPOLE_CFG_LEN = 40
 
-# Mode bits of the kernel's ``flags`` argument (csrc/cartpole_kernels.cu).
+
+def _quad_layout():
+    """One cfg layout for both quad types, sized for the 3D case (nx=12,
+    nu=4); the 2D kernel reads the first nx / nu entries of each group."""
+    names = [('MASS', 1), ('IXX', 1), ('IYY', 1), ('IZZ', 1), ('ARM_L', 1),
+             ('GRAVITY', 1), ('KF', 1), ('KM', 1), ('PWM_SCALE', 1),
+             ('PWM_CONST', 1), ('PWM_MIN', 1), ('PWM_MAX', 1),
+             ('ACT_LO', 1), ('ACT_HI', 1), ('DEN_A', 1), ('DEN_B', 1),
+             ('PHYS_LO', 1), ('PHYS_HI', 1),
+             ('GOAL', 12), ('TOL_SQ', 1), ('MAX_STEPS', 1),
+             ('U_GOAL', 4), ('W_ACT', 4), ('NOISE_STD', 1),
+             ('W_STATE', 12), ('INIT_LO', 12), ('INIT_HI', 12),
+             ('CON_LO', 12), ('CON_HI', 12), ('P_STD', 4)]
+    layout, off = {}, 0
+    for name, size in names:
+        layout[name] = off
+        off += size
+    return layout, off
+
+
+# The quad cfg layout (csrc/quad_kernels.cu keeps the same offsets).
+_Q, QUAD_CFG_LEN = _quad_layout()
+
+# State rows, action dims, motors per command, and the position/angle state
+# dims checked for out of bounds, per quad type.
+_QUAD_SHAPE = {
+    2: dict(nx=6, nu=2, n_motor=2, oob_dims=(0, 2, 4)),
+    3: dict(nx=12, nu=4, n_motor=1, oob_dims=(0, 2, 4, 6, 7, 8)),
+}
+
+# Mode bits of the kernels' ``flags`` argument (csrc/*.cu).
 _FLAGS = dict(draw_actions=1, constrained=2, action_noise=4,
               randomized_reset=8, rew_exponential=16, done_on_oob=32,
               tracking=64, quadratic_cost=128)
@@ -115,10 +169,21 @@ def philox_uniform4(seed: int, env_idx, step: int, j: int):
     return [(w >> 8).to(torch.float32) * _U24 for w in words]
 
 
+def _box_muller_radius(u1):
+    return torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+
+
 def standard_normal(u1, u2):
     """Box-Muller, cos half only: two uniforms -> one standard normal."""
-    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
-    return r * torch.cos(_TWO_PI * u2)
+    return _box_muller_radius(u1) * torch.cos(_TWO_PI * u2)
+
+
+def standard_normal_pair(u1, u2):
+    """Box-Muller, both halves: two uniforms -> two independent standard
+    normals (the cos one, then the sin one)."""
+    r = _box_muller_radius(u1)
+    a = _TWO_PI * u2
+    return r * torch.cos(a), r * torch.sin(a)
 
 
 def wrap_angle(th):
@@ -139,6 +204,11 @@ def _modes(draw_actions, constrained, action_noise, randomized_reset,
                 rew_exponential=bool(rew_exponential),
                 done_on_oob=bool(done_on_oob), tracking=bool(tracking),
                 quadratic_cost=bool(quadratic_cost))
+
+
+def _flags(m) -> int:
+    """The kernels' ``flags`` argument from a ``_modes`` dict."""
+    return sum(bit for name, bit in _FLAGS.items() if m[name])
 
 
 def cartpole_rollout_plain(state0, cfg, seed, n_steps: int, n_substeps: int,
@@ -312,7 +382,7 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
     if m['tracking']:
         n_goal = int(x_goal.shape[0])
         check_tensor(x_goal, 'x_goal', (n_goal, 4), dev)
-    flags = sum(bit for name, bit in _FLAGS.items() if m[name])
+    flags = _flags(m)
     state = torch.empty_like(state0)
     ctrl_step, reward_sum, done_count, violation_count = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
@@ -342,6 +412,253 @@ def _lib():
             p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
             i, i, i, p]
         lib.scg_cartpole_rollout.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# K5: the quadrotor rollout
+# ---------------------------------------------------------------------------
+
+def quad_rollout_plain(quad_type: int, state0, cfg, seed, n_steps: int,
+                       n_substeps: int, dt: float, actions=None,
+                       draw_actions: bool = True, constrained: bool = False,
+                       action_noise=None, randomized_reset: bool = True,
+                       rew_exponential: bool = True, done_on_oob: bool = True,
+                       x_goal=None, quadratic_cost: bool = False):
+    """The plain version of K5 for ``quad_type`` 2 or 3: the same T-step loop,
+    one PyTorch op at a time, on whatever device the inputs are. Arguments
+    and result as :func:`quad2d_rollout`."""
+    shape = _QUAD_SHAPE[quad_type]
+    nx, nu = shape['nx'], shape['nu']
+    m = _modes(draw_actions, constrained, action_noise, randomized_reset,
+               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost)
+    dev = state0.device
+    B = state0.shape[0]
+    # Scalars of the cfg as Python floats holding float32 values, and any
+    # arithmetic between two of them in float32, as the kernel does it.
+    c = np.asarray(cfg.detach().cpu(), np.float32)
+    f32 = lambda k, off=0: c[_Q[k] + off]
+    C = lambda k, off=0: float(f32(k, off))
+    span = lambda hi, lo, off=0: float(f32(hi, off) - f32(lo, off))
+    inv_nkf = float(np.float32(1.0) / (np.float32(shape['n_motor']) * f32('KF')))
+    inv_scale = float(np.float32(1.0) / f32('PWM_SCALE'))
+    two_kf = float(np.float32(2.0) * f32('KF'))
+    # The physics parameters as 0-d float32 tensors: the substeps hoist
+    # products and quotients of them, which must round in float32.
+    P = lambda k: cfg[_Q[k]].to(torch.float32)
+    zero = torch.zeros((B,), dtype=torch.float32, device=dev)
+    env_idx = torch.arange(B, dtype=torch.int64, device=dev)
+    n_goal = 1 if x_goal is None else int(x_goal.shape[0])
+
+    s = [state0[:, k].to(torch.float32) for k in range(nx)]
+    step = torch.zeros((B,), dtype=torch.int64, device=dev)
+    reward_sum = zero.clone()
+    done_count = zero.clone()
+    viol_count = zero.clone()
+    for t in range(n_steps):
+        # Action pipeline: raw -> physical -> noisy -> clipped.
+        if m['draw_actions']:
+            rnd_a = philox_uniform4(seed, env_idx, t, 0)
+            raw = [C('ACT_LO') + rnd_a[d] * span('ACT_HI', 'ACT_LO') for d in range(nu)]
+        else:
+            raw = [actions[t, :, d].to(torch.float32) for d in range(nu)]
+        noisy = [C('DEN_A') * a + C('DEN_B') for a in raw]
+        if m['action_noise']:
+            rnd_n = philox_uniform4(seed, env_idx, t, 1)
+            for d in range(0, nu, 2):
+                n_cos, n_sin = standard_normal_pair(rnd_n[d], rnd_n[d + 1])
+                noisy[d] = noisy[d] + C('NOISE_STD') * n_cos
+                noisy[d + 1] = noisy[d + 1] + C('NOISE_STD') * n_sin
+        clipped = [torch.clamp(a, C('PHYS_LO'), C('PHYS_HI')) for a in noisy]
+        rpm = []
+        for a in clipped:
+            pwm = (torch.sqrt(torch.clamp(a, min=0.0) * inv_nkf) - C('PWM_CONST')) * inv_scale
+            pwm = torch.clamp(pwm, C('PWM_MIN'), C('PWM_MAX'))
+            rpm.append(C('PWM_SCALE') * pwm + C('PWM_CONST'))
+
+        # Motor forces and the physics of one control step.
+        if quad_type == 2:
+            # Pairing [m0, m1, m1, m0]: T1 = f0 + f3 = 2 f(m0), T2 = 2 f(m1).
+            T1 = two_kf * rpm[0] * rpm[0]
+            T2 = two_kf * rpm[1] * rpm[1]
+            s = list(quad2d_substeps(*s, T1, T2, 0.0, 0.0, P('MASS'), P('IYY'),
+                                     P('ARM_L'), P('GRAVITY'), n_substeps, dt))
+        else:
+            forces = [C('KF') * r * r for r in rpm]
+            tq = [C('KM') * r * r for r in rpm]
+            zt = -tq[0] + tq[1] - tq[2] + tq[3]
+            s = list(quad3d_substeps(s, forces, zt, (0.0, 0.0, 0.0), P('MASS'),
+                                     P('IXX'), P('IYY'), P('IZZ'), P('ARM_L'),
+                                     P('GRAVITY'), n_substeps, dt))
+
+        # Goal: constant, or this env's own waypoint X_GOAL[step + 1] (both
+        # costs). Reward: state error and action error against U_GOAL, on the
+        # noisy action (RL reward) or the clipped one (quadratic cost, never
+        # exponential).
+        if m['tracking']:
+            g = x_goal[torch.clamp(step + 1, max=n_goal - 1)]
+            goal = [g[:, k] for k in range(nx)]
+        else:
+            goal = [C('GOAL', k) for k in range(nx)]
+        dist = zero
+        goal_sq = zero
+        for k in range(nx):
+            e = s[k] - goal[k]
+            dist = dist + C('W_STATE', k) * e * e
+            goal_sq = goal_sq + e * e
+        act_src = clipped if m['quadratic_cost'] else noisy
+        for d in range(nu):
+            ae = act_src[d] - C('U_GOAL', d)
+            dist = dist + C('W_ACT', d) * ae * ae
+        if m['rew_exponential'] and not m['quadratic_cost']:
+            rew = torch.exp(-dist)
+        else:
+            rew = -dist
+
+        # Done: goal (stabilization only), position/angle out of bounds on
+        # both sides, time limit.
+        if m['tracking']:
+            done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        else:
+            done = goal_sq < C('TOL_SQ')
+        out_of_box = [(s[k] < C('CON_LO', k)) | (s[k] > C('CON_HI', k)) for k in range(nx)]
+        if m['done_on_oob']:
+            for k in shape['oob_dims']:
+                done = done | out_of_box[k]
+        new_step = step + 1
+        done = done | (new_step.to(torch.float32) >= C('MAX_STEPS'))
+
+        # Default state box and input box, on the noisy pre-clip commands.
+        if m['constrained']:
+            viol = torch.zeros((B,), dtype=torch.bool, device=dev)
+            for k in range(nx):
+                viol = viol | out_of_box[k]
+            for a in noisy:
+                viol = viol | (a > C('PHYS_HI')) | (a < C('PHYS_LO'))
+            viol_count = viol_count + viol.to(torch.float32)
+
+        # Auto-reset: fresh states for the envs that are done.
+        if m['randomized_reset']:
+            rnd_r = [w for j in range(3, 3 + (nx + 3) // 4)
+                     for w in philox_uniform4(seed, env_idx, t, j)]
+            fresh = [C('INIT_LO', k) + rnd_r[k] * span('INIT_HI', 'INIT_LO', k)
+                     for k in range(nx)]
+        else:
+            fresh = [zero + C('INIT_LO', k) for k in range(nx)]
+        s = [torch.where(done, fresh[k], s[k]) for k in range(nx)]
+        step = torch.where(done, torch.zeros_like(new_step), new_step)
+        reward_sum = reward_sum + rew
+        done_count = done_count + done.to(torch.float32)
+    return {'state': torch.stack(s, dim=1), 'ctrl_step': step.to(torch.float32),
+            'reward_sum': reward_sum, 'done_count': done_count,
+            'violation_count': viol_count}
+
+
+def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
+                  n_substeps: int, dt: float, actions=None,
+                  draw_actions: bool = True, constrained: bool = False,
+                  action_noise=None, randomized_reset: bool = True,
+                  rew_exponential: bool = True, done_on_oob: bool = True,
+                  policy_params=None, x_goal=None, quadratic_cost: bool = False):
+    name = wrapper.__name__
+    if policy_params is not None:
+        raise NotImplementedError(
+            f'{name}: the closed-loop policy mode comes with the closed-loop '
+            'slice of the port')
+    if not draw_actions and actions is None:
+        raise ValueError(f'{name}: replay mode (draw_actions=False) needs actions')
+    kw = dict(actions=actions, draw_actions=draw_actions, constrained=constrained,
+              action_noise=action_noise, randomized_reset=randomized_reset,
+              rew_exponential=rew_exponential, done_on_oob=done_on_oob,
+              x_goal=x_goal, quadratic_cost=quadratic_cost)
+    dev = state0.device
+    if dev.type == 'cpu':
+        return quad_rollout_plain(quad_type, state0, cfg, seed, n_steps,
+                                  n_substeps, dt, **kw)
+    if dev.type != 'cuda':
+        raise ValueError(f'{name}: unsupported device {dev}')
+    m = _modes(draw_actions, constrained, action_noise, randomized_reset,
+               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost)
+    nx, nu = _QUAD_SHAPE[quad_type]['nx'], _QUAD_SHAPE[quad_type]['nu']
+    B = state0.shape[0]
+    check_tensor(state0, 'state0', (B, nx), dev)
+    check_tensor(cfg, 'cfg', (QUAD_CFG_LEN,), dev)
+    if not m['draw_actions']:
+        check_tensor(actions, 'actions', (n_steps, B, nu), dev)
+    n_goal = 1
+    if m['tracking']:
+        n_goal = int(x_goal.shape[0])
+        check_tensor(x_goal, 'x_goal', (n_goal, nx), dev)
+    state = torch.empty_like(state0)
+    ctrl_step, reward_sum, done_count, violation_count = (
+        torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
+    lib = _quad_lib()
+    err = lib.scg_quad_rollout(
+        quad_type, state0.data_ptr(), cfg.data_ptr(),
+        actions.data_ptr() if not m['draw_actions'] else None,
+        x_goal.data_ptr() if m['tracking'] else None,
+        state.data_ptr(), ctrl_step.data_ptr(), reward_sum.data_ptr(),
+        done_count.data_ptr(), violation_count.data_ptr(), B, int(n_steps),
+        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, _flags(m),
+        block_size(B, dev), torch.cuda.current_stream(dev).cuda_stream)
+    wrapper.launches += 1
+    _build.check(lib, err, name)
+    return {'state': state, 'ctrl_step': ctrl_step, 'reward_sum': reward_sum,
+            'done_count': done_count, 'violation_count': violation_count}
+
+
+def quad2d_rollout(state0, cfg, seed, n_steps: int, n_substeps: int, dt: float,
+                   **kw):
+    """Run ``n_steps`` full 2D-quadrotor control steps in one kernel launch (K5).
+
+    Args:
+        state0: (B, nx) float32 initial states, nx = 6 here and 12 for
+            :func:`quad3d_rollout`.
+        cfg: (QUAD_CFG_LEN,) float32 config vector (see ``_Q``).
+        seed: integer Philox key.
+        actions: (n_steps, B, nu) float32 raw actions, nu = 2 here and 4 in
+            3D, required when ``draw_actions`` is False (replay mode). With
+            ``draw_actions`` the actions are drawn iid uniform in
+            [ACT_LO, ACT_HI].
+        constrained: count default state-box / input-box violations per env.
+        action_noise: draw the NOISE_STD white-noise action disturbance;
+            defaults to ``constrained``.
+        randomized_reset: draw fresh states uniform in [INIT_LO, INIT_HI];
+            otherwise reset to INIT_LO.
+        rew_exponential, done_on_oob: the env's flags of the same names.
+        policy_params: the closed-loop mode, not in this slice (raises).
+        x_goal: (n_goal, nx) float32 tracking reference; None = stabilization.
+        quadratic_cost: the quadratic cost instead of the RL reward.
+
+    Returns:
+        dict of ``state`` (B, nx), ``ctrl_step``, ``reward_sum``,
+        ``done_count``, ``violation_count`` (B,), all float32. On the CPU the
+        plain version computes them; on a CUDA device the kernel does.
+    """
+    return _quad_rollout(2, quad2d_rollout, state0, cfg, seed, n_steps,
+                         n_substeps, dt, **kw)
+
+
+def quad3d_rollout(state0, cfg, seed, n_steps: int, n_substeps: int, dt: float,
+                   **kw):
+    """Run ``n_steps`` full 3D-quadrotor control steps in one kernel launch
+    (K5); arguments and result as :func:`quad2d_rollout` with nx = 12, nu = 4."""
+    return _quad_rollout(3, quad3d_rollout, state0, cfg, seed, n_steps,
+                         n_substeps, dt, **kw)
+
+
+quad2d_rollout.launches = 0
+quad3d_rollout.launches = 0
+
+
+def _quad_lib():
+    lib = _build.load_library('quad_kernels')
+    if lib.scg_quad_rollout.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.scg_quad_rollout.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
+            i, i, i, p]
+        lib.scg_quad_rollout.restype = ctypes.c_int
     return lib
 
 
@@ -461,4 +778,71 @@ def cartpole_rollout_cfg(env):
     cfg[_C['INIT_LO']:_C['INIT_LO'] + 4] = lo
     cfg[_C['INIT_HI']:_C['INIT_HI'] + 4] = hi
     cfg[_C['CON_HI']:_C['CON_HI'] + 4] = env.state_space.high
+    return torch.as_tensor(cfg, device=env.device)
+
+
+def quad_rollout_cfg(env):
+    """The (QUAD_CFG_LEN,) float32 cfg vector of a 2D or 3D Quadrotor env, on
+    the env's device. Raises ValueError for configurations the kernel does
+    not reproduce. NOISE_STD is left 0: the caller sets it from the action
+    disturbance it wants drawn."""
+    from safe_control_gym_tpu_torch.envs.benchmark_env import Cost, Task
+    from safe_control_gym_tpu_torch.envs.quadrotor import QuadType
+    _check_task_cost(env)
+    if env.RANDOMIZED_INERTIAL_PROP or env.adversary_disturbance:
+        raise ValueError('fused rollout needs fixed params, no adversary')
+    if env.PHYSICS != 'pyb':
+        raise ValueError('fused rollout covers plain pyb physics only')
+    if env.QUAD_TYPE not in (QuadType.TWO_D, QuadType.THREE_D):
+        raise ValueError('fused rollout covers 2D/3D quads')
+    _check_default_constraints(env)
+    nx, nu = env.state_dim, env.action_dim
+    cfg = np.zeros(QUAD_CFG_LEN, np.float32)
+    for name, val in (('MASS', env.MASS), ('IXX', env.J[0, 0]),
+                      ('IYY', env.J[1, 1]), ('IZZ', env.J[2, 2]),
+                      ('ARM_L', env.L), ('GRAVITY', env.GRAVITY_ACC),
+                      ('KF', env.KF), ('KM', env.KM),
+                      ('PWM_SCALE', env.PWM2RPM_SCALE),
+                      ('PWM_CONST', env.PWM2RPM_CONST),
+                      ('PWM_MIN', env.MIN_PWM), ('PWM_MAX', env.MAX_PWM),
+                      ('ACT_LO', env.action_space.low[0]),
+                      ('ACT_HI', env.action_space.high[0]),
+                      ('PHYS_LO', env.physical_action_bounds[0][0]),
+                      ('PHYS_HI', env.physical_action_bounds[1][0]),
+                      ('TOL_SQ', float(env.TASK_INFO.get(
+                          'stabilization_goal_tolerance', 0.0)) ** 2
+                       if env.TASK == Task.STABILIZATION else 0.0),
+                      ('MAX_STEPS', env.CTRL_STEPS)):
+        cfg[_Q[name]] = val
+    if env.NORMALIZED_RL_ACTION_SPACE:
+        cfg[_Q['DEN_A']] = env.norm_act_scale * env.hover_thrust
+        cfg[_Q['DEN_B']] = env.hover_thrust
+    else:
+        cfg[_Q['DEN_A']] = 1.0
+    if env.TASK == Task.STABILIZATION:
+        cfg[_Q['GOAL']:_Q['GOAL'] + nx] = np.atleast_2d(env.X_GOAL)[0]
+    # Tracking: GOAL/TOL_SQ unused; the reference comes in as ``x_goal``.
+    cfg[_Q['U_GOAL']:_Q['U_GOAL'] + nu] = env.U_GOAL
+    if env.COST == Cost.QUADRATIC:
+        # W_STATE/W_ACT carry 0.5*diag(Q)/(R).
+        cfg[_Q['W_STATE']:_Q['W_STATE'] + nx] = 0.5 * np.diag(env.Q)
+        cfg[_Q['W_ACT']:_Q['W_ACT'] + nu] = 0.5 * np.diag(env.R)
+    else:
+        w_a = np.atleast_1d(env.rew_act_weight)
+        cfg[_Q['W_ACT']:_Q['W_ACT'] + nu] = w_a if w_a.size == nu else np.full(nu, w_a[0])
+        w_s = np.atleast_1d(env.rew_state_weight)
+        cfg[_Q['W_STATE']:_Q['W_STATE'] + nx] = w_s if w_s.size == nx else np.full(nx, w_s[0])
+    nominal = env._nominal_init_state()
+    lo, hi = nominal.copy(), nominal.copy()
+    if env.RANDOMIZED_INIT:
+        for k, name in enumerate(env.INIT_STATE_LABELS[env.QUAD_TYPE]):
+            info = env.INIT_STATE_RAND_INFO[name]
+            if info.get('distrib') != 'uniform':
+                raise ValueError('fused rollout: uniform init rand only')
+            lo[k] += info['low']
+            hi[k] += info['high']
+    cfg[_Q['INIT_LO']:_Q['INIT_LO'] + nx] = lo
+    cfg[_Q['INIT_HI']:_Q['INIT_HI'] + nx] = hi
+    cfg[_Q['CON_LO']:_Q['CON_LO'] + nx] = env.state_space.low
+    cfg[_Q['CON_HI']:_Q['CON_HI'] + nx] = env.state_space.high
     return torch.as_tensor(cfg, device=env.device)

@@ -4,35 +4,49 @@ The tests start both packages from one state this way. A JAX ``EnvState`` of a
 batch is passed as a dict of numpy arrays (``state``, ``ctrl_step``, the
 ``dyn_params`` fields as a dict, ``dist_obs``, ``dist_act``, ``dist_dyn``); its
 PRNG ``key`` has no counterpart (the port takes ``torch.Generator``\\ s) and is
-ignored, as are the adversary buffers, which must be unset.
+ignored, as are the adversary buffers, which must be unset. The parameter
+type follows the fields: ``mass`` makes ``QuadParams``, else ``CartPoleParams``.
 """
 
 from __future__ import annotations
+
+from dataclasses import fields
 
 import numpy as np
 import torch
 
 from safe_control_gym_tpu_torch.envs.benchmark_env import EnvState
-from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams
+from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams, QuadParams
 from safe_control_gym_tpu_torch.utils.device import resolve_device
 
-__all__ = ['cartpole_params_from_numpy', 'env_state_from_numpy']
+__all__ = ['cartpole_params_from_numpy', 'quad_params_from_numpy',
+           'env_state_from_numpy']
+
+
+def _params_from_numpy(cls, d, device):
+    """``cls`` from a dict of numpy scalars or per-env arrays, one entry per
+    field. The port shares one parameter set across a batch, so per-env
+    arrays must hold one value."""
+    dev = resolve_device(device)
+    out = {}
+    for f in fields(cls):
+        v = np.asarray(d[f.name], np.float32).ravel()
+        if v.size == 0 or np.any(v != v[0]):
+            raise NotImplementedError(
+                f'{f.name}: per-env inertial parameters come with the '
+                'domain-randomization slice of the port')
+        out[f.name] = torch.tensor(v[0], dtype=torch.float32, device=dev)
+    return cls(**out)
 
 
 def cartpole_params_from_numpy(d, device='cuda') -> CartPoleParams:
-    """``CartPoleParams`` from a dict of numpy scalars or per-env arrays. The
-    port shares one parameter set across a batch, so per-env arrays must hold
-    one value."""
-    dev = resolve_device(device)
-    out = {}
-    for name in ('pole_length', 'pole_mass', 'cart_mass', 'gravity'):
-        v = np.asarray(d[name], np.float32).ravel()
-        if v.size == 0 or np.any(v != v[0]):
-            raise NotImplementedError(
-                f'{name}: per-env inertial parameters come with the '
-                'domain-randomization slice of the port')
-        out[name] = torch.tensor(v[0], dtype=torch.float32, device=dev)
-    return CartPoleParams(**out)
+    """``CartPoleParams`` from a dict of numpy scalars or per-env arrays."""
+    return _params_from_numpy(CartPoleParams, d, device)
+
+
+def quad_params_from_numpy(d, device='cuda') -> QuadParams:
+    """``QuadParams`` from a dict of numpy scalars or per-env arrays."""
+    return _params_from_numpy(QuadParams, d, device)
 
 
 def env_state_from_numpy(d, device='cuda') -> EnvState:
@@ -47,9 +61,11 @@ def env_state_from_numpy(d, device='cuda') -> EnvState:
     n = state.shape[0]
     f32 = lambda k: torch.tensor(np.asarray(d[k], np.float32).reshape(n, -1),
                                  device=dev)
+    params = (quad_params_from_numpy if 'mass' in d['dyn_params']
+              else cartpole_params_from_numpy)
     return EnvState(
         state=state,
         ctrl_step=torch.tensor(np.asarray(d['ctrl_step'], np.int32), device=dev),
-        dyn_params=cartpole_params_from_numpy(d['dyn_params'], dev),
+        dyn_params=params(d['dyn_params'], dev),
         dist_obs=f32('dist_obs'), dist_act=f32('dist_act'),
         dist_dyn=f32('dist_dyn'))

@@ -35,6 +35,7 @@ def _imported_roots(path):
 def test_import_leaves_jax_out_of_sys_modules():
     code = ('import sys, safe_control_gym_tpu_torch\n'
             'import safe_control_gym_tpu_torch.envs.cartpole\n'
+            'import safe_control_gym_tpu_torch.envs.quadrotor\n'
             'import safe_control_gym_tpu_torch.ops.rollout_kernels\n'
             'import safe_control_gym_tpu_torch.experiments.benchmark_suite\n'
             'import safe_control_gym_tpu_torch.utils.convert\n'
@@ -60,9 +61,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         make('cartpole')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
+        make('quadrotor', quad_type=3)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
         benchmark_suite.measure_rollout_kernel('cartpole', False, batch=8,
                                                n_steps=8)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         benchmark_suite.measure_batched('cartpole', False, batch=8, n_steps=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        benchmark_suite.measure_rollout_kernel('quadrotor_3D', True, batch=8,
+                                               n_steps=8)
     env = make('cartpole', device='cpu')
     assert env.device.type == 'cpu'
