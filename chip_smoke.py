@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its
-kernels, then drive the batched cartpole and quadrotor rollouts through the
-port's entry points.
+kernels, then drive the batched cartpole and quadrotor rollouts and the
+closed-loop evaluation of the committed RL models through the port's entry
+points.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,21 @@ Phases, one JSON line each:
                with every launch counter set to 0 before and read after;
   6. welch     the stochastic K4 and K5 against the per-step path in
                distribution;
-  7. kernels   one entry per kernel with its launches, error, times and bound.
+  7. k4_policy, k5_policy  K4 and K5 in policy mode (the committed actors:
+               deterministic PPO with obs normalization, deterministic SAC
+               256 wide with relu and squash, stochastic PPO with Philox
+               exploration; then the inputs the closed loop gives the kernel
+               for each committed model it admits) against their plain
+               versions at B=4096;
+  8. closed_loop  the slice's main path: make(algo, ...) -> ctrl.load(the
+               committed *_stab model) -> ctrl.evaluate_fused(batch=4096) for
+               PPO and SAC on cartpole and the 2D and 3D quads, each row's path
+               and launch counts asserted, then measure_closed_loop_kernel on
+               bench.py's closed-loop rows and one at the SAC width, with
+               every launch counter set to 0 before and read after;
+  9. welch_closed_loop  stochastic PPO through the kernel path against the
+               per-step path, per env, in distribution;
+ 10. kernels   one entry per kernel with its launches, error, times and bound.
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
@@ -28,6 +43,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -47,6 +63,14 @@ T_CHECK = {'cartpole': 300, 'quadrotor': 150, 'quadrotor_3D': 150}  # against th
 T_PER_STEP = 1024      # the per-step path of the main path
 T_ROLLOUT = 131072     # the whole-rollout path of the main path
 T_WELCH = 1024
+T_CLOSED = 500         # the committed models' closed-loop rows (two episodes)
+T_COMMITTED = 300      # the committed models against the plain version: past the
+                       # 250-step episode, so every env draws a fresh state
+T_WELCH_CLOSED = 1000
+# bench.py's closed-loop rows (hidden 64, stochastic), and one at the SAC width.
+CLOSED_BENCH = [('cartpole', 64, 'tanh', 1, 65536), ('quadrotor', 64, 'tanh', 1, 65536),
+                ('quadrotor_3D', 64, 'tanh', 1, 65536), ('quadrotor_3D', 256, 'relu', 2, 2048)]
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -63,6 +87,10 @@ OPS_STEP_REST = {'uniform': OPS_UNIFORM4, 'box_muller': 8, 'action': 6, 'reward'
                  'done': 12, 'violation': 12, 'reset': 12}
 
 SYSTEMS = ('cartpole', 'quadrotor', 'quadrotor_3D')
+# The committed models' system names, and the benchmark system of each.
+MODEL_SYSTEM = {'cartpole': 'cartpole', 'quadrotor_2D': 'quadrotor',
+                'quadrotor_3D': 'quadrotor_3D'}
+MODELS = [(algo, system) for algo in ('ppo', 'sac') for system in MODEL_SYSTEM]
 NX = {'cartpole': 4, 'quadrotor': 6, 'quadrotor_3D': 12}
 NU = {'cartpole': 1, 'quadrotor': 2, 'quadrotor_3D': 4}
 N_OOB = {'quadrotor': 3, 'quadrotor_3D': 6}
@@ -381,12 +409,272 @@ def welch(dev):
                    f'{system} constrained={constrained} {key}/step')
 
 
+def _model_path(algo, system):
+    return os.path.join(ROOT, 'examples', 'rl', 'models', algo,
+                        f'{algo}_model_{system}_stab.pt')
+
+
+def _policy_cases(system, dev, T=None):
+    """(name, T, state0, cfg, kwargs) of the checked policy modes of
+    ``system``: three modes with the committed actors of its PPO and SAC
+    models on the benchmark env, then the launch inputs the closed loop
+    builds (``fused_eval.kernel_inputs``) for each committed model whose
+    config the kernel admits. ``T`` overrides every case's length."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.experiments import fused_eval as fe
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint
+    from safe_control_gym_tpu_torch.utils.registration import make
+    model_system = {v: k for k, v in MODEL_SYSTEM.items()}[system]
+    layout = rk._C if system == 'cartpole' else rk._Q
+    nx, nu = NX[system], NU[system]
+    g = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    cases = []
+    for name, algo, constrained in [('ppo_deterministic_obs_norm', 'ppo', False),
+                                    ('sac_deterministic_relu_squash', 'sac', False),
+                                    ('ppo_stochastic_constrained', 'ppo', True)]:
+        params = load_checkpoint(_model_path(algo, model_system))['params']
+        env = bs._make(system, constrained, device=dev)
+        cfg = bs._kernel_cfg(system, env, constrained)
+        states, _ = env.func.reset_batch(g, B)
+        kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP, draw_actions=False,
+                  constrained=constrained, randomized_reset=env.RANDOMIZED_INIT)
+        if name == 'ppo_deterministic_obs_norm':
+            # Frozen normalizer stats; the last dim's small variance makes
+            # clip_obs bind.
+            var = rng.uniform(0.5, 2.0, nx).astype(np.float32)
+            var[-1] = 1e-4
+            pp = rk.pack_policy_params(params['actor'], nx,
+                                       obs_mean=rng.uniform(-0.1, 0.1, nx), obs_var=var,
+                                       device=dev)
+            kw.update(policy_activation='tanh', clip_obs=10.0)
+        elif algo == 'sac':
+            pp = rk.pack_policy_params(params['actor'], nx, device=dev)
+            kw.update(policy_activation='relu', policy_squash=True)
+        else:
+            pp = rk.pack_policy_params(params['actor'], nx, device=dev)
+            cfg[layout['P_STD']:layout['P_STD'] + nu] = torch.exp(
+                torch.as_tensor(params['logstd'], device=dev))
+            kw.update(policy_activation='tanh', policy_stochastic=True)
+        kw['policy_params'] = pp
+        cases.append((name, T or T_CHECK[system], states.state.contiguous(), cfg, kw))
+    if model_system == 'quadrotor_2D':     # the gates send it to the per-step path
+        return cases
+    for algo, stochastic in (('ppo', False), ('ppo', True), ('sac', False)):
+        env_id, task_config, algo_config = eval_config(algo, model_system)
+        ctrl = make(algo, functools.partial(make, env_id, device=dev, **task_config),
+                    **algo_config)
+        ctrl.load(_model_path(algo, model_system))
+        spec = fe.policy_eval_spec(ctrl, ctrl.env, stochastic=stochastic)
+        s0, cfg, kw = fe.kernel_inputs(spec, ctrl.env, B, 0, stochastic)
+        ctrl.close()
+        name = f'committed_{algo}_{model_system}_stab' + ('_stochastic' if stochastic else '')
+        cases.append((name, T or T_COMMITTED, s0, cfg, kw))
+    return cases
+
+
+def mlp_ops(pp, nu):
+    """Operations of one actor forward as the kernel runs it: 2 (nx H1 +
+    H1 H2 + H2 nu) for the products and sums (of the nu_out outputs only the
+    first nu are computed), the biases and activations, and the
+    normalization."""
+    return (2 * (pp.nx * pp.h1 + pp.h1 * pp.h2 + pp.h2 * nu)
+            + 2 * (pp.h1 + pp.h2) + nu + 4 * pp.nx)
+
+
+def policy_rollout_ops(system, kw, T, done_total=0.0):
+    """Operations of a B-env, T-step rollout in policy mode ``kw``."""
+    nu = NU[system]
+    per_step = mlp_ops(kw['policy_params'], nu)
+    if kw.get('policy_stochastic'):
+        if system == 'cartpole':
+            per_step += OPS_STEP_REST['box_muller']
+            if not kw.get('constrained'):
+                per_step += OPS_PHILOX + OPS_STEP_REST['uniform']
+        else:
+            per_step += OPS_PHILOX + OPS_UNIFORM4 + nu // 2 * 13
+    if kw.get('policy_squash'):
+        per_step += nu
+    return rollout_ops(system, kw, T, done_total) + B * T * per_step
+
+
+def policy_rollout_bytes(system, kw, T):
+    """Bytes of a policy-mode rollout: the open-loop ones and the actor's
+    weights the kernel reads (the first nu columns of W3 and b3)."""
+    pp, nu = kw['policy_params'], NU[system]
+    floats = (2 * pp.nx + pp.nx * pp.h1 + pp.h1 + pp.h1 * pp.h2 + pp.h2
+              + pp.h2 * nu + nu)
+    return rollout_bytes(system, kw, T) + floats * 4
+
+
+def check_policy(system, dev, length=None):
+    """K4 or K5 in policy mode against its plain version on every case of
+    ``_policy_cases``, timed; the SAC case (the widest actor) gives the
+    kernels line's times. ``length`` overrides every case's T."""
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
+    meta = ROLLOUT[system]
+    kernel, plain = _kernel(system)[1], _plain_rollout(system)
+    phase = meta['id'].lower() + '_policy'
+    worst = 0.0
+    cases = {}
+    for name, T, s0, cfg, kw in _policy_cases(system, dev, length):
+        k = kernel(s0, cfg, 7, T, **kw)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p = plain(s0, cfg, 7, T, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        state_err = float((k['state'] - p['state']).abs().max())
+        rew_err = float((k['reward_sum'] - p['reward_sum']).abs().max())
+        flips = {key: int((k[key] != p[key]).sum())
+                 for key in ('done_count', 'ctrl_step', 'violation_count')}
+        ok = (state_err <= 1e-4 and bool(((k['reward_sum'] - p['reward_sum']).abs()
+                                           <= 1e-4 + 1e-4 * p['reward_sum'].abs()).all())
+              and not any(flips.values()))
+        pp = kw['policy_params']
+        ms = time_ms(lambda: kernel(s0, cfg, 8, T, **kw), 3)
+        done_total = float(k['done_count'].sum())
+        b_ms, b_by = bound_ms(policy_rollout_bytes(system, kw, T),
+                              policy_rollout_ops(system, kw, T, done_total))
+        # One warp (B=32) against the full batch: the same time means one
+        # env's serial chain sets the pace.
+        warp_s0 = s0[:32].contiguous()
+        one_warp_ms = time_ms(lambda: kernel(warp_s0, cfg, 8, T, **kw), 3)
+        cases[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           one_warp_ms=one_warp_ms, T=T,
+                           actor=f'{pp.nx}->{pp.h1}->{pp.h2}->{pp.nu_out}')
+        min_done = float(k['done_count'].min())
+        emit(phase, kernel=meta['name'], case=name, B=B, state_err=state_err,
+             reward_err=rew_err, envs_with_other_counts=flips, ok=ok,
+             mean_done_count=float(k['done_count'].mean()), min_done_count=min_done,
+             mean_violation_count=float(k['violation_count'].mean()), **cases[name])
+        if name.startswith('committed') and T >= T_COMMITTED and min_done < 1:
+            raise RuntimeError(f'{meta["name"]} on {name}: an env drew no fresh state '
+                               f'in {T} steps, so the check missed the reset draws')
+        if not ok:
+            raise RuntimeError(
+                f'{meta["name"]} in policy mode disagrees with its plain version on {name}: '
+                f'state err {state_err} (tol 1e-4), reward err {rew_err} (tol 1e-4 + '
+                f'1e-4|r|), envs whose counts differ {flips} (must be none)')
+        worst = max(worst, state_err, rew_err)
+    sac = cases['sac_deterministic_relu_squash']
+    return dict(name=meta['name'] + ' (policy mode)', route='cuda',
+                source=meta['source'] + ' + ' + SRC + 'policy_mlp.cuh',
+                replaces=meta['replaces'], max_abs_err=worst, ms=sac['ms'],
+                kernel_ms=sac['ms'], plain_ms=sac['plain_ms'], bound_ms=sac['bound_ms'],
+                bound_by=sac['bound_by'], library_ms=None,
+                library_note='none: no single PyTorch call computes a closed-loop '
+                             'T-step env rollout',
+                shape=f'B={B} T={sac["T"]} deterministic SAC actor {sac["actor"]}',
+                cases=cases, id=meta['id'])
+
+
+def _policy_counts():
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    counts = {fn.__name__: fn.launches for fn in _counters()}
+    counts.update({f'{m["name"]}.policy': getattr(rk, m['name']).policy_launches
+                   for m in ROLLOUT.values()})
+    return counts
+
+
+def closed_loop(dev, smi):
+    """The slice's main path: the committed PPO and SAC models through
+    make -> load -> evaluate_fused at B=4096, then the closed-loop bench rows."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    from safe_control_gym_tpu_torch.utils.registration import make
+    for fn in _counters():
+        fn.launches = 0
+    for m in ROLLOUT.values():
+        getattr(rk, m['name']).policy_launches = 0
+    rows = {}
+    for algo, model_system in MODELS:
+        system = MODEL_SYSTEM[model_system]
+        env_id, task_config, algo_config = eval_config(algo, model_system)
+        before = _policy_counts()
+        ctrl = make(algo, functools.partial(make, env_id, device=dev, **task_config),
+                    **algo_config)
+        ctrl.load(_model_path(algo, model_system))
+        res = ctrl.evaluate_fused(batch=B, n_steps=T_CLOSED, seed=0)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in _policy_counts().items() if v != before[k]}
+        widths = [tuple(layer['w'].shape) for layer in ctrl.agent.params['actor']]
+        ctrl.close()
+        # quadrotor_2D_stab's state box is not the default one: the kernel's
+        # gate refuses it, and the per-step path (K2) runs it.
+        kernel_row = model_system != 'quadrotor_2D'
+        want = 'policy-in-kernel' if kernel_row else 'per-step-scan'
+        row = dict(path=res['path'], algo=algo, system=model_system, actor=widths, batch=B,
+                   T=T_CLOSED, ctrl_steps_per_s=res['steps_per_sec'],
+                   episodes=res['episodes'], ep_return_mean=res['ep_return_mean'],
+                   ep_length_mean=res['ep_length_mean'], launches_moved=moved, card=smi)
+        rows[f'{algo} {model_system}'] = row
+        emit('closed_loop', **row)
+        if res['path'] != want:
+            raise RuntimeError(f'{algo} {model_system} took path {res["path"]}, expected {want}')
+        policy_key = f'{ROLLOUT[system]["name"]}.policy'
+        if kernel_row and moved.get(policy_key, 0) < 1:
+            raise RuntimeError(f'{algo} {model_system}: {policy_key} did not launch')
+        if not kernel_row and (moved.get(PHYSICS[system]['name'], 0) < T_CLOSED
+                               or moved.get(policy_key, 0)):
+            raise RuntimeError(f'{algo} {model_system}: the per-step path did not run '
+                               f'through {PHYSICS[system]["name"]} alone: {moved}')
+        if not (res['episodes'] > 0 and np.isfinite(res['ep_return_mean'])
+                and 0 < res['ep_length_mean'] <= T_CLOSED):
+            raise RuntimeError(f'{algo} {model_system}: implausible statistics {res}')
+    for system, hidden, activation, out_mult, T in CLOSED_BENCH:
+        sps, ex = bs.measure_closed_loop_kernel(system, batch=B, n_steps=T,
+                                                n_reps=3 if T > 4096 else 2, hidden=hidden,
+                                                activation=activation,
+                                                nu_out=out_mult * NU[system], device=dev)
+        key = f'bench {system} hidden={hidden}'
+        rows[key] = dict(path=f'policy-in-kernel ({ROLLOUT[system]["id"]})', system=system,
+                         batch=B, T=T, ctrl_steps_per_s=sps, card=smi, **ex)
+        emit('closed_loop', row=key, **rows[key])
+    launches = _policy_counts()
+    emit('closed_loop', launches=launches)
+    for m in ROLLOUT.values():
+        if launches[f'{m["name"]}.policy'] <= 0:
+            raise RuntimeError(f'the closed-loop path never launched {m["name"]} in '
+                               'policy mode')
+    return launches, rows
+
+
+def welch_closed_loop(dev):
+    """Stochastic PPO, the committed cartpole and 3D quad models: per-env
+    reward and done counts of the kernel path against the per-step path."""
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    for model_system in ('cartpole', 'quadrotor_3D'):
+        env_id, task_config, algo_config = eval_config('ppo', model_system)
+        ctrl = make('ppo', functools.partial(make, env_id, device=dev, **task_config),
+                    **algo_config)
+        ctrl.load(_model_path('ppo', model_system))
+        kw = dict(batch=B, n_steps=T_WELCH_CLOSED, stochastic=True, n_reps=0,
+                  return_per_env=True)
+        rk = ctrl.evaluate_fused(seed=11, use_kernel=True, **kw)
+        rs = ctrl.evaluate_fused(seed=23, use_kernel=False, **kw)
+        ctrl.close()
+        if rk['path'] != 'policy-in-kernel' or rs['path'] != 'per-step-scan':
+            raise RuntimeError(f'welch_closed_loop took {rk["path"]} and {rs["path"]}')
+        if not (rk['episodes'] > 0 and rs['episodes'] > 0):
+            raise RuntimeError(f'welch_closed_loop: no episode ended ({model_system})')
+        for key in ('reward_sum', 'done_count'):
+            _welch(rk['per_env'][key] / T_WELCH_CLOSED, rs['per_env'][key] / T_WELCH_CLOSED,
+                   f'closed loop stochastic PPO {model_system} {key}/step')
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the GPU', file=sys.stderr)
         sys.exit(2)
     from safe_control_gym_tpu_torch.ops import _build
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -402,6 +690,20 @@ def main():
     rollout = {s: check_rollout(s, dev) for s in SYSTEMS}
     launches, rows = main_path(dev, smi)
     welch(dev)
+    policy = {s: check_policy(s, dev) for s in SYSTEMS}
+    cl_launches, cl_rows = closed_loop(dev, smi)
+    welch_closed_loop(dev)
+    for system in SYSTEMS:
+        row = policy[system]
+        row['launches'] = cl_launches[f'{ROLLOUT[system]["name"]}.policy']
+        bench = cl_rows[f'bench {system} hidden=64']
+        row['main_path_ms'] = bench['kernel_ms']
+        row['main_path_shape'] = f'B={B} T={bench["T"]} stochastic, actor hidden 64'
+        kw = dict(draw_actions=False, randomized_reset=False, policy_stochastic=True,
+                  policy_params=rk.PolicyParams(None, NX[system], 64, 64, NU[system]))
+        row['main_path_bound_ms'] = bound_ms(
+            policy_rollout_bytes(system, kw, bench['T']),
+            policy_rollout_ops(system, kw, bench['T'], bench['mean_done_count'] * B))[0]
     for system in SYSTEMS:
         physics[system]['launches'] = launches[PHYSICS[system]['name']]
         row = rollout[system]
@@ -417,7 +719,8 @@ def main():
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     ordered = [physics['cartpole'], physics['quadrotor'], physics['quadrotor_3D'],
-               rollout['cartpole'], rollout['quadrotor'], rollout['quadrotor_3D']]
+               rollout['cartpole'], rollout['quadrotor'], rollout['quadrotor_3D'],
+               policy['cartpole'], policy['quadrotor'], policy['quadrotor_3D']]
     kernels = [{**{k: row[k] for k in keys}, **{k: v for k, v in row.items() if k not in keys}}
                for row in ordered]
     emit('done', wall_seconds=time.perf_counter() - t_start, card=smi)

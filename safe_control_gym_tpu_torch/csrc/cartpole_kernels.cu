@@ -6,7 +6,8 @@
 // K4 cartpole_rollout: the whole T-step open-loop rollout (action pipeline,
 //    K1's substeps, reward, done, violations, auto-reset) in one launch.
 //    Replaces safe_control_gym_tpu/ops/rollout_kernels.py::
-//    cartpole_rollout_pallas (open-loop modes).
+//    cartpole_rollout_pallas, open loop and, in policy mode, closed loop with
+//    the actor MLP of policy_mlp.cuh choosing each action.
 //
 // Design. Both are per-env elementwise work along a long serial chain, so
 // each thread owns one env and keeps its state in registers: K1 for
@@ -15,7 +16,8 @@
 // env and is bound by its launch at the batch sizes of the env step; K4
 // reads its inputs once and writes its outputs once, and at B=4096 it is
 // bound by the latency of the dependent chain (T x n_substeps substeps of
-// sin, cos and a reciprocal), not by FLOP/s or bytes.
+// sin, cos and a reciprocal), not by FLOP/s or bytes. In policy mode the
+// actor's float32 products come first in each step (policy_mlp.cuh).
 //
 // Numerics. Every expression follows the plain PyTorch version
 // (ops/physics_kernels.py, ops/rollout_kernels.py) operation for
@@ -31,16 +33,22 @@
 // counter (env, step, j, 0) for j = 0, 1: eight uint32 per env and step, the
 // kernel's eight random rows. Row 0 is the action draw, rows 1-2 the
 // Box-Muller pair of the action noise, rows 4-7 the fresh auto-reset
-// state; row 3 is the policy mode's exploration noise (closed-loop slice).
-// The plain version runs the same Philox on int64 tensors.
+// state. In policy mode, where no action is drawn, rows 0 and 3 are the
+// Box-Muller pair (cos half) of the exploration noise. The plain version runs
+// the same Philox on int64 tensors.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "policy_mlp.cuh"
 
 namespace {
 
+using scg::F_POLICY;
+using scg::F_POLICY_RELU;
+using scg::F_POLICY_SQUASH;
+using scg::F_POLICY_STOCHASTIC;
 using scg::kTwoPi;
 using scg::standard_normal;
 using scg::uniform4;
@@ -118,13 +126,18 @@ __device__ __forceinline__ float wrap_angle(float th) {
   return th - kTwoPi * floorf((th + kPi) * kInv2Pi);
 }
 
+// POLICY: the policy mode, compiled apart so that the open-loop modes keep
+// their own register allocation.
+template <bool POLICY>
 __global__ void cartpole_rollout_kernel(
     const float* __restrict__ state0, const float* __restrict__ cfg_g,
     const float* __restrict__ actions, const float* __restrict__ x_goal,
-    float* __restrict__ state_out, float* __restrict__ step_out,
-    float* __restrict__ reward_out, float* __restrict__ done_out,
-    float* __restrict__ viol_out, int B, int T, int n_substeps, float dt,
-    uint32_t seed, int n_goal, int flags) {
+    const float* __restrict__ policy_p, float* __restrict__ state_out,
+    float* __restrict__ step_out, float* __restrict__ reward_out,
+    float* __restrict__ done_out, float* __restrict__ viol_out, int B, int T,
+    int n_substeps, float dt, uint32_t seed, int n_goal, int h1, int h2,
+    int nu_out, float clip_obs, int flags) {
+  extern __shared__ float hidden[];  // policy mode: [h1][blockDim.x]
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   float c[CFG_LEN];
@@ -139,6 +152,11 @@ __global__ void cartpole_rollout_kernel(
   const bool done_on_oob = flags & F_DONE_ON_OOB;
   const bool tracking = flags & F_TRACKING;
   const bool quadratic = flags & F_QUADRATIC_COST;
+  const bool policy_stochastic = flags & F_POLICY_STOCHASTIC;
+  const bool policy_squash = flags & F_POLICY_SQUASH;
+  const scg::PolicyMLP mlp{policy_p, h1, h2, nu_out, clip_obs,
+                           (flags & F_POLICY_RELU) != 0};
+  float* hid = hidden + threadIdx.x;
 
   float x = state0[4 * b + 0], xd = state0[4 * b + 1];
   float th = state0[4 * b + 2], thd = state0[4 * b + 3];
@@ -148,13 +166,26 @@ __global__ void cartpole_rollout_kernel(
 
   for (int t = 0; t < T; ++t) {
     float rnd[8];
-    if (draw_actions || action_noise) uniform4(seed, b, t, 0u, rnd);
+    if (draw_actions || action_noise || (POLICY && policy_stochastic)) {
+      uniform4(seed, b, t, 0u, rnd);
+    }
     if (randomized_reset) uniform4(seed, b, t, 1u, rnd + 4);
 
     // Action pipeline: raw -> physical -> noisy -> clipped.
-    const float raw = draw_actions
-        ? c[ACT_LO] + rnd[0] * (c[ACT_HI] - c[ACT_LO])
-        : actions[(size_t)t * B + b];
+    float raw;
+    if constexpr (POLICY) {
+      // The actor on the state at the start of the step, exploration noise
+      // from rows 0 and 3, then the squash.
+      const float s[4] = {x, xd, th, thd};
+      float mu[1];
+      scg::policy_mean<4, 1>(mlp, s, hid, blockDim.x, mu);
+      raw = mu[0];
+      if (policy_stochastic) raw = raw + c[P_STD] * standard_normal(rnd[0], rnd[3]);
+      if (policy_squash) raw = tanhf(raw);
+    } else {
+      raw = draw_actions ? c[ACT_LO] + rnd[0] * (c[ACT_HI] - c[ACT_LO])
+                         : actions[(size_t)t * B + b];
+    }
     const float phys = raw * c[ACT_SCALE];
     float noisy = phys;
     if (action_noise) noisy = phys + c[NOISE_STD] * standard_normal(rnd[1], rnd[2]);
@@ -265,19 +296,24 @@ int scg_cartpole_advance(const void* states, const void* forces,
   return (int)cudaGetLastError();
 }
 
+// policy: the packed actor (ops/rollout_kernels.py pack_policy_params) with
+// widths h1, h2, nu_out, read when flags has F_POLICY.
 int scg_cartpole_rollout(const void* state0, const void* cfg,
                          const void* actions, const void* x_goal,
-                         void* state_out, void* step_out, void* reward_out,
-                         void* done_out, void* viol_out, int B, int T,
-                         int n_substeps, float dt, unsigned int seed,
-                         int n_goal, int flags, int threads, void* stream) {
+                         const void* policy, void* state_out, void* step_out,
+                         void* reward_out, void* done_out, void* viol_out, int B,
+                         int T, int n_substeps, float dt, unsigned int seed,
+                         int n_goal, int h1, int h2, int nu_out, float clip_obs,
+                         int flags, int threads, void* stream) {
   if (B > 0) {
-    cartpole_rollout_kernel<<<(B + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
+    auto kernel = (flags & F_POLICY) ? cartpole_rollout_kernel<true>
+                                     : cartpole_rollout_kernel<false>;
+    const size_t smem = scg::policy_smem(flags, h1, threads);
+    kernel<<<(B + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(
         (const float*)state0, (const float*)cfg, (const float*)actions,
-        (const float*)x_goal, (float*)state_out, (float*)step_out,
-        (float*)reward_out, (float*)done_out, (float*)viol_out, B, T,
-        n_substeps, dt, seed, n_goal, flags);
+        (const float*)x_goal, (const float*)policy, (float*)state_out,
+        (float*)step_out, (float*)reward_out, (float*)done_out, (float*)viol_out,
+        B, T, n_substeps, dt, seed, n_goal, h1, h2, nu_out, clip_obs, flags);
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@
 //    rollout (action pipeline, motor model, K2's or K3's substeps, reward
 //    on state and action error, done, violations, auto-reset) in one
 //    launch. Replaces safe_control_gym_tpu/ops/rollout_kernels.py::
-//    _quad_rollout_pallas (open-loop modes).
+//    _quad_rollout_pallas, open loop and, in policy mode, closed loop with
+//    the actor MLP of policy_mlp.cuh choosing each action.
 //
 // Design. All three are per-env elementwise work along a serial chain, so
 // each thread owns one env and keeps its state in registers: K2 and K3 for
@@ -21,7 +22,8 @@
 // their launch at the env step's batch sizes. K5 reads its inputs once and
 // writes its outputs once; at B=4096 it is bound by the latency of the
 // dependent chain (T x n_substeps substeps of one sin/cos pair in 2D, three
-// pairs and three divides in 3D), not by FLOP/s or bytes.
+// pairs and three divides in 3D), not by FLOP/s or bytes. In policy mode the
+// actor's float32 products come first in each step (policy_mlp.cuh).
 //
 // Numerics. Every expression follows the plain PyTorch version
 // (ops/physics_kernels.py, ops/rollout_kernels.py) operation for
@@ -34,7 +36,8 @@
 //   j = 0     the nu action draws (draw_actions);
 //   j = 1     the nu noise uniforms, in pairs (u1, u2), each pair giving a
 //             cos and a sin Box-Muller normal (action_noise);
-//   j = 2     reserved for the policy mode's exploration noise;
+//   j = 2     the policy mode's exploration noise, paired as for j = 1
+//             (policy_stochastic);
 //   j = 3..5  the nx words of a fresh auto-reset state (randomized_reset),
 //             drawn only for an env that is done at that step.
 
@@ -42,9 +45,14 @@
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "policy_mlp.cuh"
 
 namespace {
 
+using scg::F_POLICY;
+using scg::F_POLICY_RELU;
+using scg::F_POLICY_SQUASH;
+using scg::F_POLICY_STOCHASTIC;
 using scg::standard_normal_pair;
 using scg::uniform4;
 
@@ -191,19 +199,23 @@ __device__ constexpr bool oob_dim(int k) {
                  : (k == 0 || k == 2 || k == 4 || k == 6 || k == 7 || k == 8);
 }
 
-template <int QT>
+// POLICY: the policy mode, compiled apart so that the open-loop modes keep
+// their own register allocation.
+template <int QT, bool POLICY>
 __global__ void quad_rollout_kernel(
     const float* __restrict__ state0, const float* __restrict__ cfg_g,
     const float* __restrict__ actions, const float* __restrict__ x_goal,
-    float* __restrict__ state_out, float* __restrict__ step_out,
-    float* __restrict__ reward_out, float* __restrict__ done_out,
-    float* __restrict__ viol_out, int B, int T, int n_substeps, float dt,
-    uint32_t seed, int n_goal, int flags) {
+    const float* __restrict__ policy_p, float* __restrict__ state_out,
+    float* __restrict__ step_out, float* __restrict__ reward_out,
+    float* __restrict__ done_out, float* __restrict__ viol_out, int B, int T,
+    int n_substeps, float dt, uint32_t seed, int n_goal, int h1, int h2,
+    int nu_out, float clip_obs, int flags) {
   constexpr int NX = QT == 2 ? 6 : 12;
   constexpr int NU = QT == 2 ? 2 : 4;
   constexpr float N_MOTOR = QT == 2 ? 2.0f : 1.0f;  // motors per command
 
   __shared__ float c[QUAD_CFG_LEN];
+  extern __shared__ float hidden[];  // policy mode: [h1][blockDim.x]
   for (int k = threadIdx.x; k < QUAD_CFG_LEN; k += blockDim.x) c[k] = cfg_g[k];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -217,6 +229,11 @@ __global__ void quad_rollout_kernel(
   const bool done_on_oob = flags & F_DONE_ON_OOB;
   const bool tracking = flags & F_TRACKING;
   const bool quadratic = flags & F_QUADRATIC_COST;
+  const bool policy_stochastic = flags & F_POLICY_STOCHASTIC;
+  const bool policy_squash = flags & F_POLICY_SQUASH;
+  const scg::PolicyMLP mlp{policy_p, h1, h2, nu_out, clip_obs,
+                           (flags & F_POLICY_RELU) != 0};
+  float* hid = hidden + threadIdx.x;
 
   float s[NX];
 #pragma unroll
@@ -235,12 +252,35 @@ __global__ void quad_rollout_kernel(
     if (draw_actions) uniform4(seed, b, t, 0u, rnd_a);
     if (action_noise) uniform4(seed, b, t, 1u, rnd_n);
     float noisy[NU], clipped[NU];
+    if constexpr (POLICY) {
+      // The actor on the state at the start of the step, exploration noise
+      // from counter word j = 2 in Box-Muller pairs, then the squash.
+      float raw[NU];
+      scg::policy_mean<NX, NU>(mlp, s, hid, blockDim.x, raw);
+      if (policy_stochastic) {
+        float rnd_p[4];
+        uniform4(seed, b, t, 2u, rnd_p);
 #pragma unroll
-    for (int d = 0; d < NU; ++d) {
-      const float raw = draw_actions
-          ? c[ACT_LO] + rnd_a[d] * (c[ACT_HI] - c[ACT_LO])
-          : actions[((size_t)t * B + b) * NU + d];
-      noisy[d] = c[DEN_A] * raw + c[DEN_B];
+        for (int d = 0; d < NU; d += 2) {
+          float n_cos, n_sin;
+          standard_normal_pair(rnd_p[d], rnd_p[d + 1], n_cos, n_sin);
+          raw[d] = raw[d] + c[P_STD + d] * n_cos;
+          raw[d + 1] = raw[d + 1] + c[P_STD + d + 1] * n_sin;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < NU; ++d) {
+        const float a = policy_squash ? tanhf(raw[d]) : raw[d];
+        noisy[d] = c[DEN_A] * a + c[DEN_B];
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < NU; ++d) {
+        const float raw = draw_actions
+            ? c[ACT_LO] + rnd_a[d] * (c[ACT_HI] - c[ACT_LO])
+            : actions[((size_t)t * B + b) * NU + d];
+        noisy[d] = c[DEN_A] * raw + c[DEN_B];
+      }
     }
     if (action_noise) {
 #pragma unroll
@@ -395,20 +435,27 @@ int scg_quad3d_advance(const void* states, const void* forces,
   return (int)cudaGetLastError();
 }
 
+// policy: the packed actor (ops/rollout_kernels.py pack_policy_params) with
+// widths h1, h2, nu_out, read when flags has F_POLICY.
 int scg_quad_rollout(int quad_type, const void* state0, const void* cfg,
-                     const void* actions, const void* x_goal, void* state_out,
-                     void* step_out, void* reward_out, void* done_out,
-                     void* viol_out, int B, int T, int n_substeps, float dt,
-                     unsigned int seed, int n_goal, int flags, int threads,
+                     const void* actions, const void* x_goal, const void* policy,
+                     void* state_out, void* step_out, void* reward_out,
+                     void* done_out, void* viol_out, int B, int T, int n_substeps,
+                     float dt, unsigned int seed, int n_goal, int h1, int h2,
+                     int nu_out, float clip_obs, int flags, int threads,
                      void* stream) {
   if (quad_type != 2 && quad_type != 3) return (int)cudaErrorInvalidValue;
   if (B > 0) {
-    auto kernel = quad_type == 2 ? quad_rollout_kernel<2> : quad_rollout_kernel<3>;
-    kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+    const bool policy_mode = flags & F_POLICY;
+    auto kernel = quad_type == 2
+        ? (policy_mode ? quad_rollout_kernel<2, true> : quad_rollout_kernel<2, false>)
+        : (policy_mode ? quad_rollout_kernel<3, true> : quad_rollout_kernel<3, false>);
+    const size_t smem = scg::policy_smem(flags, h1, threads);
+    kernel<<<(B + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(
         (const float*)state0, (const float*)cfg, (const float*)actions,
-        (const float*)x_goal, (float*)state_out, (float*)step_out,
-        (float*)reward_out, (float*)done_out, (float*)viol_out, B, T,
-        n_substeps, dt, seed, n_goal, flags);
+        (const float*)x_goal, (const float*)policy, (float*)state_out,
+        (float*)step_out, (float*)reward_out, (float*)done_out, (float*)viol_out,
+        B, T, n_substeps, dt, seed, n_goal, h1, h2, nu_out, clip_obs, flags);
   }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ Port of ``safe_control_gym_tpu/experiments/benchmark_suite.py`` for the
 cartpole and the 2D and 3D quadrotors: ``_env_kwargs``, ``kernel_covers``,
 ``measure_rollout_kernel`` (the whole-rollout kernels, K4 and K5) and
 ``measure_batched`` (the per-step path: ``FuncEnv.step_autoreset`` in a Python
-loop, whose physics runs in K1, K2 or K3). The protocol is the reference's
+loop, whose physics runs in K1, K2 or K3), and ``measure_closed_loop_kernel``
+(the closed loop: K4 or K5 in policy mode with a random actor and Gaussian
+exploration, the RL collect and eval workload). The protocol is the reference's
 headline one: open-loop random actions, 50 Hz control over 20 physics
 substeps at 1000 Hz, with and without the default constraints and a
 white-noise action disturbance. ``'quadrotor_3D'`` names the 3D quadrotor,
@@ -25,8 +27,8 @@ from safe_control_gym_tpu_torch.utils.device import require_cuda
 from safe_control_gym_tpu_torch.utils.registration import make
 
 __all__ = ['CONSTRAINTS', 'DISTURBANCES', '_env_kwargs', 'kernel_covers',
-           'measure_rollout_kernel', 'measure_batched', 'per_step_rollout',
-           'sanity_check']
+           'measure_rollout_kernel', 'measure_closed_loop_kernel',
+           'measure_batched', 'per_step_rollout', 'sanity_check']
 
 CONSTRAINTS = [{'constraint_form': 'default_constraint',
                 'constrained_variable': 'state'},
@@ -165,6 +167,67 @@ def measure_rollout_kernel(system, constrained, batch=4096, n_steps=32768,
                       mean_done_count=dc, mean_reward_sum=rs,
                       mean_violation_count=vc)
         return sim_time / t_long, batch * n_steps / t_long, extras
+    finally:
+        env.close()
+
+
+def measure_closed_loop_kernel(system, batch=4096, n_steps=8192, n_reps=3, hidden=64,
+                               activation='tanh', nu_out=None, device='cuda'):
+    """The closed-loop rollout kernel: the actor MLP (obs -> hidden -> hidden
+    -> nu_out, a PPO actor drawn from seed 0) runs inside K4 or K5 on every
+    step, with stochastic Gaussian exploration (std exp(logstd)) from the
+    kernel's Philox; one launch for the whole T-step rollout. ``nu_out``
+    (default nu) may be 2 nu for a SAC-shaped output layer, of which the
+    kernel reads the first nu.
+
+    Returns ``(steps_per_sec, extras)`` like ``measure_rollout_kernel``, with
+    the device time of the T-step launch and the device rate from the slope
+    between T/8 and T steps."""
+    from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import init_actor_critic
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    dev = require_cuda(device)
+    env = _make(system, False, device=dev)
+    try:
+        nx, nu = env.state_dim, env.action_dim
+        params = init_actor_critic(torch.Generator(device=dev).manual_seed(0), nx,
+                                   nu if nu_out is None else nu_out, [hidden] * 2)
+        cfg_fn, roll, layout = _kernel(system)
+        cfg = cfg_fn(env)
+        rk.check_policy_obs(env)
+        cfg[layout['P_STD']:layout['P_STD'] + nu] = torch.exp(params['logstd'][:nu])
+        pp = rk.pack_policy_params(params['actor'], nx, device=dev)
+        states, _ = env.func.reset_batch(torch.Generator(device=dev).manual_seed(1), batch)
+        state0 = states.state.contiguous()
+        kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
+                  draw_actions=False, randomized_reset=False, policy_params=pp,
+                  policy_stochastic=True, policy_activation=activation)
+
+        def timed(t_steps):
+            out = roll(state0, cfg, 1, n_steps=t_steps, **kw)
+            torch.cuda.synchronize(dev)
+            warm = sanity_check(out, t_steps, f'closed loop {system} hidden={hidden}')
+            best_wall = best_dev = float('inf')
+            for i in range(n_reps):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                roll(state0, cfg, 2 + i, n_steps=t_steps, **kw)
+                e1.record()
+                torch.cuda.synchronize(dev)
+                best_wall = min(best_wall, time.perf_counter() - t0)
+                best_dev = min(best_dev, e0.elapsed_time(e1) / 1e3)
+            return best_wall, best_dev, warm
+
+        _, d_short, _ = timed(n_steps // 8)
+        t_long, d_long, (dc, rs) = timed(n_steps)
+        slope = (d_long - d_short) / (n_steps - n_steps // 8)
+        extras = dict(device=torch.cuda.get_device_name(dev), kernel_ms=d_long * 1e3,
+                      device_steps_per_sec=batch * n_steps / d_long,
+                      device_slope_steps_per_sec=batch / slope,
+                      mean_done_count=dc, mean_reward_sum=rs, hidden=hidden,
+                      activation=activation, nu_out=pp.nu_out)
+        return batch * n_steps / t_long, extras
     finally:
         env.close()
 

@@ -2,19 +2,24 @@
 
     python -m safe_control_gym_tpu_torch.experiments.kernel_first_check
 
-Builds ``csrc/quad_kernels.cu`` once with ``-Xptxas -v`` and prints each
-kernel's registers, stack and spills; builds every library as the port does;
-runs K2 and K3 once at B=4096 against their plain versions; runs K5 (2D and
-3D, plain and constrained benchmark configs) for 60 steps against its plain
-version and times it at T=4096 with CUDA events; and checks that K4 still
-agrees with its plain version. It prints what it finds and raises only where
-the card or the build fails; ``chip_smoke.py`` holds the tolerances.
+Builds ``csrc/cartpole_kernels.cu`` and ``csrc/quad_kernels.cu`` once with
+``-Xptxas -v`` and prints each kernel's registers, stack and spills; builds
+every library as the port does; runs K2 and K3 once at B=4096 against their
+plain versions; runs K5 (2D and 3D, plain and constrained benchmark configs)
+for 60 steps against its plain version and times it at T=4096 with CUDA
+events; checks that K4 still agrees with its plain version; and runs the
+policy-mode phases of ``chip_smoke.py`` (``check_policy``: K4 and K5 with the
+committed actors against their plain versions) at T=40. Run it from the
+root of a checkout. It prints what it finds of the open-loop kernels and
+raises where the card or the build fails; the policy mode is held to
+``chip_smoke.py``'s tolerances, and raises there.
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -27,6 +32,7 @@ from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
 from safe_control_gym_tpu_torch.utils.device import require_cuda
 
 B = 4096
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def ptxas_report(name: str = 'quad_kernels') -> str:
@@ -39,8 +45,17 @@ def ptxas_report(name: str = 'quad_kernels') -> str:
     return proc.stdout + proc.stderr
 
 
+def policy_checks(dev, T=40):
+    """``chip_smoke.py``'s k4_policy and k5_policy phases at a short ``T``."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    for system in chip_smoke.SYSTEMS:
+        chip_smoke.check_policy(system, dev, length=T)
+
+
 def main():
     dev = require_cuda('cuda')
+    print(ptxas_report('cartpole_kernels'))
     print(ptxas_report())
     t0 = time.perf_counter()
     _build.build_all()
@@ -90,6 +105,7 @@ def main():
     torch.cuda.synchronize()
     print('k4 state err', float((k['state'] - p['state']).abs().max()),
           'reward err', float((k['reward_sum'] - p['reward_sum']).abs().max()))
+    policy_checks(dev)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True).stdout)
 

@@ -39,25 +39,36 @@ four uint32 words. A uniform is ``(bits >> 8) * 2^-24``.
 
 * K4, j = 0, 1: eight words per env and step, the TPU kernel's eight random
   rows (0: action, 1-2: Box-Muller pair of the action noise, cos half only,
-  4-7: the fresh auto-reset state; 3 is the policy mode's).
+  4-7: the fresh auto-reset state; 0 and 3: the Box-Muller pair of the
+  policy mode's exploration noise, cos half, where no action is drawn).
 * K5: j = 0 the nu action draws; j = 1 the nu noise uniforms, taken in pairs
-  (u1, u2), each pair giving a cos and a sin Box-Muller normal; j = 2 is
-  reserved for the policy mode's exploration noise; j = 3..5 the nx words of
-  a fresh auto-reset state. Only the words the flags need are drawn.
+  (u1, u2), each pair giving a cos and a sin Box-Muller normal; j = 2 the
+  policy mode's exploration noise, paired the same way; j = 3..5 the nx words
+  of a fresh auto-reset state. Only the words the flags need are drawn.
 
 The plain versions run the same Philox on int64 tensors and repeat the
 kernels' float operations one by one (differences of cfg entries taken in
 float32, hoisted physics terms on 0-d float32 tensors), so kernel and plain
 version draw identical numbers and can be compared value by value.
 
-The closed-loop policy mode (``policy_params``) comes with the closed-loop
-slice; until then the wrappers raise on it.
+Closed loop (``policy_params``, from :func:`pack_policy_params`): the action
+comes from the 2-hidden-layer actor MLP on the state at the start of the step
+(``_mlp_fwd`` and ``_policy_mean`` of the JAX package), with the frozen
+observation normalization folded in, plus optional Gaussian exploration
+(``policy_stochastic``, std P_STD) and tanh squash (``policy_squash``); the
+rest of the step is unchanged. The weights travel as one contiguous float32
+buffer [nmean (nx), ninv (nx), W1 (nx, H1), b1, W2 (H1, H2), b2,
+W3 (H2, nu_out), b3], in-major, in place of the TPU's padded (8, H) and
+(ROWS, 1) blocks. The kernels (``csrc/policy_mlp.cuh``) and the plain versions
+accumulate every unit from 0 in ascending input order, one multiply and one
+add at a time, so they agree value by value there too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,9 +81,11 @@ from safe_control_gym_tpu_torch.ops.physics_kernels import (cartpole_substeps,
 
 __all__ = ['cartpole_rollout', 'cartpole_rollout_plain', 'cartpole_rollout_cfg',
            'quad2d_rollout', 'quad3d_rollout', 'quad_rollout_plain',
-           'quad_rollout_cfg', 'rollout_task_kwargs', 'philox4x32_10',
-           'philox_uniform4', 'standard_normal', 'standard_normal_pair',
-           'wrap_angle', 'CARTPOLE_CFG_LEN', 'QUAD_CFG_LEN']
+           'quad_rollout_cfg', 'rollout_task_kwargs', 'PolicyParams',
+           'pack_policy_params', 'check_policy_obs', 'policy_mean_plain',
+           'philox4x32_10', 'philox_uniform4', 'standard_normal',
+           'standard_normal_pair', 'wrap_angle', 'CARTPOLE_CFG_LEN',
+           'QUAD_CFG_LEN']
 
 _TWO_PI = 6.283185307179586
 _INV_2PI = 1.0 / _TWO_PI
@@ -126,10 +139,18 @@ _QUAD_SHAPE = {
     3: dict(nx=12, nu=4, n_motor=1, oob_dims=(0, 2, 4, 6, 7, 8)),
 }
 
-# Mode bits of the kernels' ``flags`` argument (csrc/*.cu).
+# Mode bits of the kernels' ``flags`` argument (csrc/*.cu, csrc/policy_mlp.cuh).
 _FLAGS = dict(draw_actions=1, constrained=2, action_noise=4,
               randomized_reset=8, rew_exponential=16, done_on_oob=32,
-              tracking=64, quadratic_cost=128)
+              tracking=64, quadratic_cost=128, policy=256,
+              policy_stochastic=512, policy_squash=1024, policy_relu=2048)
+
+# The policy mode's block: one warp, whose hidden layer ([unit][thread], 4
+# bytes each) must fit in the 48 KB of shared memory a launch gets without
+# opting in; the kernel computes hidden units eight at a time.
+_POLICY_THREADS = 32
+_POLICY_MAX_H1 = 48 * 1024 // (4 * _POLICY_THREADS)
+_POLICY_UNIT_TILE = 8
 
 
 # ---------------------------------------------------------------------------
@@ -192,18 +213,143 @@ def wrap_angle(th):
 
 
 # ---------------------------------------------------------------------------
+# The policy mode: the actor MLP inside the rollout
+# ---------------------------------------------------------------------------
+
+class PolicyParams(NamedTuple):
+    """The packed actor of :func:`pack_policy_params`: the float32 buffer
+    [nmean, ninv, W1, b1, W2, b2, W3, b3] and its widths."""
+    buffer: torch.Tensor
+    nx: int
+    h1: int
+    h2: int
+    nu_out: int
+
+
+def _numpy(a):
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def pack_policy_params(actor_params, nx: int, obs_mean=None, obs_var=None,
+                       device='cuda') -> PolicyParams:
+    """Pack an actor MLP (``mlp_init`` layout: three ``{'w' (in, out), 'b'}``,
+    tensors or numpy) and optional frozen obs-normalizer stats for the
+    rollout's policy mode. The normalization folds into a per-dim shift
+    ``nmean`` and scale ``ninv = 1 / sqrt(var + 1e-8)``, computed in numpy
+    float32 as the JAX package does (identity without stats)."""
+    if len(actor_params) != 3:
+        raise ValueError('policy-in-kernel supports exactly 2 hidden layers')
+    w1, w2, w3 = (_numpy(layer['w']) for layer in actor_params)
+    b1, b2, b3 = (_numpy(layer['b']) for layer in actor_params)
+    if w1.shape[0] != nx:
+        raise ValueError(f'actor input dim {w1.shape[0]} != state dim {nx}')
+    h1, h2, nu_out = w1.shape[1], w2.shape[1], w3.shape[1]
+    if w2.shape[0] != h1 or w3.shape[0] != h2:
+        raise ValueError('actor layers do not chain: '
+                         f'{w1.shape}, {w2.shape}, {w3.shape}')
+    nmean = np.zeros(nx, np.float32)
+    ninv = np.ones(nx, np.float32)
+    if obs_mean is not None:
+        nmean[:] = _numpy(obs_mean)
+        ninv[:] = 1.0 / np.sqrt(_numpy(obs_var) + 1e-8)
+    buf = np.concatenate([nmean, ninv, w1.ravel(), b1, w2.ravel(), b2, w3.ravel(), b3])
+    return PolicyParams(torch.as_tensor(buf, device=device).contiguous(), nx, h1, h2,
+                        nu_out)
+
+
+def check_policy_obs(env):
+    """Raise ValueError unless the policy sees the raw state: the policy mode
+    feeds the state to the actor, so obs must equal state."""
+    if env.disturbances.get('observation') is not None:
+        raise ValueError('policy-in-kernel rollout: no observation noise')
+    if getattr(env, 'obs_goal_horizon', 0):
+        raise ValueError('policy-in-kernel rollout: obs == state required '
+                         '(obs_goal_horizon unsupported)')
+    if getattr(env, 'obs_wrap_angle', False):
+        raise ValueError('policy-in-kernel rollout assumes raw-angle obs')
+
+
+def _policy_views(pp: PolicyParams):
+    nx, h1, h2, no = pp.nx, pp.h1, pp.h2, pp.nu_out
+    nmean, ninv, w1, b1, w2, b2, w3, b3 = torch.split(
+        pp.buffer, [nx, nx, nx * h1, h1, h1 * h2, h2, h2 * no, no])
+    return nmean, ninv, w1.view(nx, h1), b1, w2.view(h1, h2), b2, w3.view(h2, no), b3
+
+
+def policy_mean_plain(pp: PolicyParams, s, nu: int, activation: str = 'tanh',
+                      clip_obs: float = 1e30):
+    """The first ``nu`` actor outputs on the states ``s`` (a list of nx (B,)
+    tensors), as the kernels compute them: the normalized, clipped obs, then
+    each layer's units accumulated from 0 over ascending inputs with one
+    multiply and one add each, then the bias and the activation."""
+    nmean, ninv, w1, b1, w2, b2, w3, b3 = _policy_views(pp)
+    act = torch.tanh if activation == 'tanh' else torch.relu
+    B = s[0].shape[0]
+
+    def dense(inputs, w, n_out):
+        acc = torch.zeros((B, n_out), dtype=torch.float32, device=s[0].device)
+        for k, x in enumerate(inputs):
+            acc = acc + x[:, None] * w[k, :n_out]
+        return acc
+
+    obs = [torch.clamp((s[k] - nmean[k]) * ninv[k], -clip_obs, clip_obs)
+           for k in range(pp.nx)]
+    h = act(dense(obs, w1, pp.h1) + b1)
+    h = act(dense(h.unbind(1), w2, pp.h2) + b2)
+    mu = dense(h.unbind(1), w3, nu) + b3[:nu]
+    return list(mu.unbind(1))
+
+
+def _policy_mode(policy_params, policy_activation, draw_actions, actions, name):
+    """Validate the policy-mode arguments; True when the mode is on."""
+    if policy_params is None:
+        return False
+    if draw_actions or actions is not None:
+        raise ValueError(f'{name}: policy mode replaces the PRNG/replay action '
+                         'source (pass draw_actions=False and no actions)')
+    if policy_activation not in ('tanh', 'relu'):
+        raise ValueError(f'{name}: policy_activation must be tanh or relu, got '
+                         f'{policy_activation!r}')
+    return True
+
+
+def _policy_launch(policy_params, nx, nu, B, dev, name):
+    """(buffer pointer, h1, h2, nu_out, threads) of a launch; in policy mode
+    one warp a block, and hidden widths the kernel computes."""
+    if policy_params is None:
+        return None, 0, 0, 0, block_size(B, dev)
+    pp = policy_params
+    if pp.nx != nx or pp.nu_out < nu:
+        raise ValueError(f'{name}: actor {pp.nx} -> {pp.nu_out} does not fit '
+                         f'state dim {nx}, action dim {nu}')
+    if pp.h1 % _POLICY_UNIT_TILE or pp.h2 % _POLICY_UNIT_TILE or pp.h1 > _POLICY_MAX_H1:
+        raise ValueError(f'{name}: hidden widths {pp.h1}, {pp.h2} must be multiples of '
+                         f'{_POLICY_UNIT_TILE}, and the first at most {_POLICY_MAX_H1}')
+    check_tensor(pp.buffer, 'policy_params.buffer',
+                 (2 * nx + nx * pp.h1 + pp.h1 + pp.h1 * pp.h2 + pp.h2
+                  + pp.h2 * pp.nu_out + pp.nu_out,), dev)
+    return pp.buffer.data_ptr(), pp.h1, pp.h2, pp.nu_out, _POLICY_THREADS
+
+
+# ---------------------------------------------------------------------------
 # The rollout
 # ---------------------------------------------------------------------------
 
 def _modes(draw_actions, constrained, action_noise, randomized_reset,
-           rew_exponential, done_on_oob, tracking, quadratic_cost):
+           rew_exponential, done_on_oob, tracking, quadratic_cost, policy=False,
+           policy_stochastic=False, policy_squash=False, policy_activation='tanh'):
     return dict(draw_actions=bool(draw_actions), constrained=bool(constrained),
                 action_noise=bool(constrained if action_noise is None
                                   else action_noise),
                 randomized_reset=bool(randomized_reset),
                 rew_exponential=bool(rew_exponential),
                 done_on_oob=bool(done_on_oob), tracking=bool(tracking),
-                quadratic_cost=bool(quadratic_cost))
+                quadratic_cost=bool(quadratic_cost), policy=bool(policy),
+                policy_stochastic=bool(policy and policy_stochastic),
+                policy_squash=bool(policy and policy_squash),
+                policy_relu=bool(policy and policy_activation == 'relu'))
 
 
 def _flags(m) -> int:
@@ -216,13 +362,20 @@ def cartpole_rollout_plain(state0, cfg, seed, n_steps: int, n_substeps: int,
                            constrained: bool = False, action_noise=None,
                            randomized_reset: bool = True,
                            rew_exponential: bool = True,
-                           done_on_oob: bool = True, x_goal=None,
+                           done_on_oob: bool = True, policy_params=None,
+                           policy_stochastic: bool = False,
+                           policy_squash: bool = False,
+                           policy_activation: str = 'tanh',
+                           clip_obs: float = 1e30, x_goal=None,
                            quadratic_cost: bool = False):
     """The plain version of K4: the same T-step loop, one PyTorch op at a
     time, on whatever device the inputs are. Arguments and result as
     :func:`cartpole_rollout`."""
+    policy = _policy_mode(policy_params, policy_activation, draw_actions, actions,
+                          'cartpole_rollout_plain')
     m = _modes(draw_actions, constrained, action_noise, randomized_reset,
-               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost)
+               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost,
+               policy, policy_stochastic, policy_squash, policy_activation)
     dev = state0.device
     B = state0.shape[0]
     # Scalars of the cfg as Python floats holding float32 values; a difference
@@ -242,13 +395,22 @@ def cartpole_rollout_plain(state0, cfg, seed, n_steps: int, n_substeps: int,
     viol_count = zero.clone()
     for t in range(n_steps):
         rnd = [None] * 8
-        if m['draw_actions'] or m['action_noise']:
+        if m['draw_actions'] or m['action_noise'] or m['policy_stochastic']:
             rnd[0:4] = philox_uniform4(seed, env_idx, t, 0)
         if m['randomized_reset']:
             rnd[4:8] = philox_uniform4(seed, env_idx, t, 1)
 
         # Action pipeline: raw -> physical -> noisy -> clipped.
-        if m['draw_actions']:
+        if m['policy']:
+            # The actor on the state at the start of the step, exploration
+            # noise from words 0 and 3, then the squash.
+            raw = policy_mean_plain(policy_params, [x, xd, th, thd], 1,
+                                    policy_activation, clip_obs)[0]
+            if m['policy_stochastic']:
+                raw = raw + C('P_STD') * standard_normal(rnd[0], rnd[3])
+            if m['policy_squash']:
+                raw = torch.tanh(raw)
+        elif m['draw_actions']:
             raw = C('ACT_LO') + rnd[0] * span('ACT_HI', 'ACT_LO')
         else:
             raw = actions[t].to(torch.float32)
@@ -329,8 +491,10 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
                      dt: float, actions=None, draw_actions: bool = True,
                      constrained: bool = False, action_noise=None,
                      randomized_reset: bool = True, rew_exponential: bool = True,
-                     done_on_oob: bool = True, policy_params=None, x_goal=None,
-                     quadratic_cost: bool = False):
+                     done_on_oob: bool = True, policy_params=None,
+                     policy_stochastic: bool = False, policy_squash: bool = False,
+                     policy_activation: str = 'tanh', clip_obs: float = 1e30,
+                     x_goal=None, quadratic_cost: bool = False):
     """Run ``n_steps`` full cartpole control steps in one kernel launch (K4).
 
     Args:
@@ -345,7 +509,16 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
             defaults to ``constrained``.
         randomized_reset: draw fresh states uniform in [INIT_LO, INIT_HI];
             otherwise reset to INIT_LO.
-        policy_params: the closed-loop mode, not in this slice (raises).
+        policy_params: closed loop, a :class:`PolicyParams` from
+            :func:`pack_policy_params`: the actor MLP on the raw state gives
+            the action (needs ``draw_actions=False`` and no ``actions``;
+            obs must equal state, :func:`check_policy_obs`).
+        policy_stochastic: add N(0, P_STD) exploration noise to the actor's
+            mean (Philox words 0 and 3).
+        policy_squash: tanh of the (noisy) actor output (the SAC and DDPG
+            convention).
+        policy_activation: the actor's hidden activation, 'tanh' or 'relu'.
+        clip_obs: bound of the normalized policy input.
         x_goal: (n_goal, 4) float32 tracking reference; None = stabilization.
         quadratic_cost: the quadratic cost instead of the RL reward.
 
@@ -354,11 +527,9 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
         ``done_count``, ``violation_count`` (B,), all float32. On the CPU the
         plain version computes them; on a CUDA device the kernel does.
     """
-    if policy_params is not None:
-        raise NotImplementedError(
-            'cartpole_rollout: the closed-loop policy mode comes with the '
-            'closed-loop slice of the port')
-    if not draw_actions and actions is None:
+    policy = _policy_mode(policy_params, policy_activation, draw_actions, actions,
+                          'cartpole_rollout')
+    if not policy and not draw_actions and actions is None:
         raise ValueError('cartpole_rollout: replay mode (draw_actions=False) '
                          'needs actions')
     dev = state0.device
@@ -368,40 +539,47 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
             draw_actions=draw_actions, constrained=constrained,
             action_noise=action_noise, randomized_reset=randomized_reset,
             rew_exponential=rew_exponential, done_on_oob=done_on_oob,
-            x_goal=x_goal, quadratic_cost=quadratic_cost)
+            policy_params=policy_params, policy_stochastic=policy_stochastic,
+            policy_squash=policy_squash, policy_activation=policy_activation,
+            clip_obs=clip_obs, x_goal=x_goal, quadratic_cost=quadratic_cost)
     if dev.type != 'cuda':
         raise ValueError(f'cartpole_rollout: unsupported device {dev}')
     m = _modes(draw_actions, constrained, action_noise, randomized_reset,
-               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost)
+               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost,
+               policy, policy_stochastic, policy_squash, policy_activation)
     B = state0.shape[0]
     check_tensor(state0, 'state0', (B, 4), dev)
     check_tensor(cfg, 'cfg', (CARTPOLE_CFG_LEN,), dev)
-    if not m['draw_actions']:
+    if not m['draw_actions'] and not policy:
         check_tensor(actions, 'actions', (n_steps, B), dev)
     n_goal = 1
     if m['tracking']:
         n_goal = int(x_goal.shape[0])
         check_tensor(x_goal, 'x_goal', (n_goal, 4), dev)
     flags = _flags(m)
+    ptr, h1, h2, nu_out, threads = _policy_launch(policy_params, 4, 1, B, dev,
+                                                  'cartpole_rollout')
     state = torch.empty_like(state0)
     ctrl_step, reward_sum, done_count, violation_count = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
     lib = _lib()
     err = lib.scg_cartpole_rollout(
         state0.data_ptr(), cfg.data_ptr(),
-        actions.data_ptr() if not m['draw_actions'] else None,
-        x_goal.data_ptr() if m['tracking'] else None,
+        actions.data_ptr() if not (m['draw_actions'] or policy) else None,
+        x_goal.data_ptr() if m['tracking'] else None, ptr,
         state.data_ptr(), ctrl_step.data_ptr(), reward_sum.data_ptr(),
         done_count.data_ptr(), violation_count.data_ptr(), B, int(n_steps),
-        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, flags,
-        block_size(B, dev), torch.cuda.current_stream(dev).cuda_stream)
+        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, h1, h2, nu_out,
+        float(clip_obs), flags, threads, torch.cuda.current_stream(dev).cuda_stream)
     cartpole_rollout.launches += 1
+    cartpole_rollout.policy_launches += policy
     _build.check(lib, err, 'cartpole_rollout')
     return {'state': state, 'ctrl_step': ctrl_step, 'reward_sum': reward_sum,
             'done_count': done_count, 'violation_count': violation_count}
 
 
 cartpole_rollout.launches = 0
+cartpole_rollout.policy_launches = 0   # the launches in policy mode
 
 
 def _lib():
@@ -409,8 +587,8 @@ def _lib():
     if lib.scg_cartpole_rollout.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.scg_cartpole_rollout.argtypes = [
-            p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
-            i, i, i, p]
+            p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
+            i, i, i, i, ctypes.c_float, i, i, p]
         lib.scg_cartpole_rollout.restype = ctypes.c_int
     return lib
 
@@ -424,14 +602,20 @@ def quad_rollout_plain(quad_type: int, state0, cfg, seed, n_steps: int,
                        draw_actions: bool = True, constrained: bool = False,
                        action_noise=None, randomized_reset: bool = True,
                        rew_exponential: bool = True, done_on_oob: bool = True,
-                       x_goal=None, quadratic_cost: bool = False):
+                       policy_params=None, policy_stochastic: bool = False,
+                       policy_squash: bool = False, policy_activation: str = 'tanh',
+                       clip_obs: float = 1e30, x_goal=None,
+                       quadratic_cost: bool = False):
     """The plain version of K5 for ``quad_type`` 2 or 3: the same T-step loop,
     one PyTorch op at a time, on whatever device the inputs are. Arguments
     and result as :func:`quad2d_rollout`."""
     shape = _QUAD_SHAPE[quad_type]
     nx, nu = shape['nx'], shape['nu']
+    policy = _policy_mode(policy_params, policy_activation, draw_actions, actions,
+                          'quad_rollout_plain')
     m = _modes(draw_actions, constrained, action_noise, randomized_reset,
-               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost)
+               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost,
+               policy, policy_stochastic, policy_squash, policy_activation)
     dev = state0.device
     B = state0.shape[0]
     # Scalars of the cfg as Python floats holding float32 values, and any
@@ -457,7 +641,19 @@ def quad_rollout_plain(quad_type: int, state0, cfg, seed, n_steps: int,
     viol_count = zero.clone()
     for t in range(n_steps):
         # Action pipeline: raw -> physical -> noisy -> clipped.
-        if m['draw_actions']:
+        if m['policy']:
+            # The actor on the state at the start of the step, exploration
+            # noise from counter word j = 2 in Box-Muller pairs, the squash.
+            raw = policy_mean_plain(policy_params, s, nu, policy_activation, clip_obs)
+            if m['policy_stochastic']:
+                rnd_p = philox_uniform4(seed, env_idx, t, 2)
+                for d in range(0, nu, 2):
+                    n_cos, n_sin = standard_normal_pair(rnd_p[d], rnd_p[d + 1])
+                    raw[d] = raw[d] + C('P_STD', d) * n_cos
+                    raw[d + 1] = raw[d + 1] + C('P_STD', d + 1) * n_sin
+            if m['policy_squash']:
+                raw = [torch.tanh(a) for a in raw]
+        elif m['draw_actions']:
             rnd_a = philox_uniform4(seed, env_idx, t, 0)
             raw = [C('ACT_LO') + rnd_a[d] * span('ACT_HI', 'ACT_LO') for d in range(nu)]
         else:
@@ -559,18 +755,19 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
                   draw_actions: bool = True, constrained: bool = False,
                   action_noise=None, randomized_reset: bool = True,
                   rew_exponential: bool = True, done_on_oob: bool = True,
-                  policy_params=None, x_goal=None, quadratic_cost: bool = False):
+                  policy_params=None, policy_stochastic: bool = False,
+                  policy_squash: bool = False, policy_activation: str = 'tanh',
+                  clip_obs: float = 1e30, x_goal=None, quadratic_cost: bool = False):
     name = wrapper.__name__
-    if policy_params is not None:
-        raise NotImplementedError(
-            f'{name}: the closed-loop policy mode comes with the closed-loop '
-            'slice of the port')
-    if not draw_actions and actions is None:
+    policy = _policy_mode(policy_params, policy_activation, draw_actions, actions, name)
+    if not policy and not draw_actions and actions is None:
         raise ValueError(f'{name}: replay mode (draw_actions=False) needs actions')
     kw = dict(actions=actions, draw_actions=draw_actions, constrained=constrained,
               action_noise=action_noise, randomized_reset=randomized_reset,
               rew_exponential=rew_exponential, done_on_oob=done_on_oob,
-              x_goal=x_goal, quadratic_cost=quadratic_cost)
+              policy_params=policy_params, policy_stochastic=policy_stochastic,
+              policy_squash=policy_squash, policy_activation=policy_activation,
+              clip_obs=clip_obs, x_goal=x_goal, quadratic_cost=quadratic_cost)
     dev = state0.device
     if dev.type == 'cpu':
         return quad_rollout_plain(quad_type, state0, cfg, seed, n_steps,
@@ -578,30 +775,33 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
     if dev.type != 'cuda':
         raise ValueError(f'{name}: unsupported device {dev}')
     m = _modes(draw_actions, constrained, action_noise, randomized_reset,
-               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost)
+               rew_exponential, done_on_oob, x_goal is not None, quadratic_cost,
+               policy, policy_stochastic, policy_squash, policy_activation)
     nx, nu = _QUAD_SHAPE[quad_type]['nx'], _QUAD_SHAPE[quad_type]['nu']
     B = state0.shape[0]
     check_tensor(state0, 'state0', (B, nx), dev)
     check_tensor(cfg, 'cfg', (QUAD_CFG_LEN,), dev)
-    if not m['draw_actions']:
+    if not m['draw_actions'] and not policy:
         check_tensor(actions, 'actions', (n_steps, B, nu), dev)
     n_goal = 1
     if m['tracking']:
         n_goal = int(x_goal.shape[0])
         check_tensor(x_goal, 'x_goal', (n_goal, nx), dev)
+    ptr, h1, h2, nu_out, threads = _policy_launch(policy_params, nx, nu, B, dev, name)
     state = torch.empty_like(state0)
     ctrl_step, reward_sum, done_count, violation_count = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
     lib = _quad_lib()
     err = lib.scg_quad_rollout(
         quad_type, state0.data_ptr(), cfg.data_ptr(),
-        actions.data_ptr() if not m['draw_actions'] else None,
-        x_goal.data_ptr() if m['tracking'] else None,
+        actions.data_ptr() if not (m['draw_actions'] or policy) else None,
+        x_goal.data_ptr() if m['tracking'] else None, ptr,
         state.data_ptr(), ctrl_step.data_ptr(), reward_sum.data_ptr(),
         done_count.data_ptr(), violation_count.data_ptr(), B, int(n_steps),
-        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, _flags(m),
-        block_size(B, dev), torch.cuda.current_stream(dev).cuda_stream)
+        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, h1, h2, nu_out,
+        float(clip_obs), _flags(m), threads, torch.cuda.current_stream(dev).cuda_stream)
     wrapper.launches += 1
+    wrapper.policy_launches += policy
     _build.check(lib, err, name)
     return {'state': state, 'ctrl_step': ctrl_step, 'reward_sum': reward_sum,
             'done_count': done_count, 'violation_count': violation_count}
@@ -626,7 +826,9 @@ def quad2d_rollout(state0, cfg, seed, n_steps: int, n_substeps: int, dt: float,
         randomized_reset: draw fresh states uniform in [INIT_LO, INIT_HI];
             otherwise reset to INIT_LO.
         rew_exponential, done_on_oob: the env's flags of the same names.
-        policy_params: the closed-loop mode, not in this slice (raises).
+        policy_params, policy_stochastic, policy_squash, policy_activation,
+            clip_obs: the closed-loop mode, as for :func:`cartpole_rollout`;
+            the exploration noise comes from Philox counter word j = 2.
         x_goal: (n_goal, nx) float32 tracking reference; None = stabilization.
         quadratic_cost: the quadratic cost instead of the RL reward.
 
@@ -649,6 +851,8 @@ def quad3d_rollout(state0, cfg, seed, n_steps: int, n_substeps: int, dt: float,
 
 quad2d_rollout.launches = 0
 quad3d_rollout.launches = 0
+quad2d_rollout.policy_launches = 0   # the launches in policy mode
+quad3d_rollout.policy_launches = 0
 
 
 def _quad_lib():
@@ -656,8 +860,8 @@ def _quad_lib():
     if lib.scg_quad_rollout.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.scg_quad_rollout.argtypes = [
-            i, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
-            i, i, i, p]
+            i, p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
+            i, i, i, i, ctypes.c_float, i, i, p]
         lib.scg_quad_rollout.restype = ctypes.c_int
     return lib
 
@@ -725,7 +929,9 @@ def cartpole_rollout_cfg(env):
     """The (CARTPOLE_CFG_LEN,) float32 cfg vector of a CartPole env, on the
     env's device. Raises ValueError for configurations the kernel does not
     reproduce. NOISE_STD is left 0: the caller sets it from the action
-    disturbance it wants drawn."""
+    disturbance it wants drawn. A state dim missing from the init
+    randomization spec stays at its nominal value, as the env's sampler
+    leaves it."""
     from safe_control_gym_tpu_torch.envs.benchmark_env import Cost, Task
     _check_task_cost(env)
     if env.RANDOMIZED_INERTIAL_PROP or env.adversary_disturbance:
@@ -770,7 +976,9 @@ def cartpole_rollout_cfg(env):
         spec = env.INIT_STATE_RAND_INFO
         for k, name in enumerate(('init_x', 'init_x_dot', 'init_theta',
                                   'init_theta_dot')):
-            info = spec[name]
+            info = spec.get(name)
+            if info is None:
+                continue      # not randomized: the env's sampler skips it too
             if info.get('distrib') != 'uniform':
                 raise ValueError('fused rollout: uniform init rand only')
             lo[k] += info['low']
@@ -785,7 +993,9 @@ def quad_rollout_cfg(env):
     """The (QUAD_CFG_LEN,) float32 cfg vector of a 2D or 3D Quadrotor env, on
     the env's device. Raises ValueError for configurations the kernel does
     not reproduce. NOISE_STD is left 0: the caller sets it from the action
-    disturbance it wants drawn."""
+    disturbance it wants drawn. A state dim missing from the init
+    randomization spec stays at its nominal value, as the env's sampler
+    leaves it."""
     from safe_control_gym_tpu_torch.envs.benchmark_env import Cost, Task
     from safe_control_gym_tpu_torch.envs.quadrotor import QuadType
     _check_task_cost(env)
@@ -836,7 +1046,9 @@ def quad_rollout_cfg(env):
     lo, hi = nominal.copy(), nominal.copy()
     if env.RANDOMIZED_INIT:
         for k, name in enumerate(env.INIT_STATE_LABELS[env.QUAD_TYPE]):
-            info = env.INIT_STATE_RAND_INFO[name]
+            info = env.INIT_STATE_RAND_INFO.get(name)
+            if info is None:
+                continue      # not randomized: the env's sampler skips it too
             if info.get('distrib') != 'uniform':
                 raise ValueError('fused rollout: uniform init rand only')
             lo[k] += info['low']

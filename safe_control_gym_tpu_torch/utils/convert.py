@@ -6,6 +6,9 @@ batch is passed as a dict of numpy arrays (``state``, ``ctrl_step``, the
 PRNG ``key`` has no counterpart (the port takes ``torch.Generator``\\ s) and is
 ignored, as are the adversary buffers, which must be unset. The parameter
 type follows the fields: ``mass`` makes ``QuadParams``, else ``CartPoleParams``.
+
+An RL actor's parameters (``mlp_init`` layout, a list of ``{'w', 'b'}``) and a
+frozen observation normalizer carry across as copies.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ import torch
 
 from safe_control_gym_tpu_torch.envs.benchmark_env import EnvState
 from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams, QuadParams
+from safe_control_gym_tpu_torch.math.normalization import NormalizerState
 from safe_control_gym_tpu_torch.utils.device import resolve_device
 
 __all__ = ['cartpole_params_from_numpy', 'quad_params_from_numpy',
-           'env_state_from_numpy']
+           'env_state_from_numpy', 'mlp_params_from_numpy',
+           'normalizer_from_numpy']
 
 
 def _params_from_numpy(cls, d, device):
@@ -69,3 +74,21 @@ def env_state_from_numpy(d, device='cuda') -> EnvState:
         dyn_params=params(d['dyn_params'], dev),
         dist_obs=f32('dist_obs'), dist_act=f32('dist_act'),
         dist_dyn=f32('dist_dyn'))
+
+
+def mlp_params_from_numpy(layers, device='cuda'):
+    """MLP parameters (``math/networks.py`` layout) from a JAX ``mlp_init``
+    pytree given as numpy: a list of ``{'w': (in, out), 'b': (out,)}``."""
+    dev = resolve_device(device)
+    return [{k: torch.tensor(np.asarray(layer[k], np.float32), device=dev)
+             for k in ('w', 'b')} for layer in layers]
+
+
+def normalizer_from_numpy(d, device='cuda'):
+    """``NormalizerState`` from a JAX ``NormalizerState`` given as a dict of
+    numpy arrays (``mean``, ``var``, ``count``); None stays None."""
+    if d is None:
+        return None
+    dev = resolve_device(device)
+    return NormalizerState(**{k: torch.tensor(np.asarray(d[k], np.float32), device=dev)
+                              for k in ('mean', 'var', 'count')})

@@ -2,6 +2,7 @@
 and its entry points run on the card unless the caller asks for the CPU."""
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -39,6 +40,17 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import safe_control_gym_tpu_torch.ops.rollout_kernels\n'
             'import safe_control_gym_tpu_torch.experiments.benchmark_suite\n'
             'import safe_control_gym_tpu_torch.utils.convert\n'
+            'import safe_control_gym_tpu_torch.experiments.fused_eval\n'
+            'import safe_control_gym_tpu_torch.controllers.ppo.ppo\n'
+            'import safe_control_gym_tpu_torch.controllers.sac.sac\n'
+            'import safe_control_gym_tpu_torch.controllers.ddpg.ddpg\n'
+            'from functools import partial\n'
+            'from safe_control_gym_tpu_torch.utils.registration import make\n'
+            'from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint\n'
+            'for m in ("ppo/ppo_model_quadrotor_3D_stab.pt", "sac/sac_model_cartpole_stab.pt"):\n'
+            '    load_checkpoint("examples/rl/models/" + m)\n'
+            'ctrl = make("ppo", partial(make, "cartpole", device="cpu"))\n'
+            'ctrl.load("examples/rl/models/ppo/ppo_model_cartpole_stab.pt")\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)\n'
             'print(bad); sys.exit(1 if bad else 0)' % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -70,5 +82,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         benchmark_suite.measure_rollout_kernel('quadrotor_3D', True, batch=8,
                                                n_steps=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        benchmark_suite.measure_closed_loop_kernel('cartpole', batch=8, n_steps=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        make('sac', functools.partial(make, 'cartpole'))
+    ctrl = make('ppo', functools.partial(make, 'cartpole', device='cpu'))
+    assert ctrl.device.type == 'cpu' and ctrl.agent.params['logstd'].device.type == 'cpu'
     env = make('cartpole', device='cpu')
     assert env.device.type == 'cpu'

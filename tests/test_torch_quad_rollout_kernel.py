@@ -185,10 +185,12 @@ def test_cfg_gates_the_physics_quad_type_and_dense_costs(attr, value):
 
 def test_kernel_source_keeps_the_cfg_layout_and_flags():
     """csrc/quad_kernels.cu states the offsets of ``_Q`` and the mode bits of
-    ``_FLAGS`` by hand; they must agree."""
-    path = os.path.join(os.path.dirname(trk.__file__), '..', 'csrc', 'quad_kernels.cu')
-    enums = dict((k, int(v)) for k, v in re.findall(r'\b([A-Z][A-Z0-9_]*) = (\d+)',
-                                                     open(path).read()))
+    ``_FLAGS`` by hand (the policy mode's bits in csrc/policy_mlp.cuh); they
+    must agree."""
+    csrc = os.path.join(os.path.dirname(trk.__file__), '..', 'csrc')
+    source = ''.join(open(os.path.join(csrc, f)).read()
+                     for f in ('quad_kernels.cu', 'policy_mlp.cuh'))
+    enums = dict((k, int(v)) for k, v in re.findall(r'\b([A-Z][A-Z0-9_]*) = (\d+)', source))
     for name, off in trk._Q.items():
         assert enums[name] == off, name
     assert enums['QUAD_CFG_LEN'] == trk.QUAD_CFG_LEN
@@ -276,9 +278,14 @@ def test_policy_mode_and_replay_without_actions_raise():
     te = tmake('quadrotor', device='cpu', **_base(2))
     cfg = trk.quad_rollout_cfg(te)
     s0 = torch.zeros((4, 6))
-    with pytest.raises(NotImplementedError):
+    zero = [{'w': np.zeros(s, np.float32), 'b': np.zeros(s[1], np.float32)}
+            for s in ((6, 8), (8, 8), (8, 2))]
+    pp = trk.pack_policy_params(zero, 6, device='cpu')
+    with pytest.raises(ValueError, match='replaces'):   # the policy is the action source
+        trk.quad2d_rollout(s0, cfg, 0, 4, 20, 1e-3, policy_params=pp)
+    with pytest.raises(ValueError, match='replaces'):
         trk.quad2d_rollout(s0, cfg, 0, 4, 20, 1e-3, draw_actions=False,
-                           policy_params=(torch.zeros(1),))
+                           actions=torch.zeros((4, 4, 2)), policy_params=pp)
     with pytest.raises(ValueError):
         trk.quad3d_rollout(torch.zeros((4, 12)), cfg, 0, 4, 20, 1e-3, draw_actions=False)
 

@@ -169,9 +169,14 @@ def test_policy_mode_and_replay_without_actions_raise():
     te = tmake('cartpole', device='cpu', **BASE)
     cfg = trk.cartpole_rollout_cfg(te)
     s0 = torch.zeros((4, 4))
-    with pytest.raises(NotImplementedError):
+    zero = [{'w': np.zeros(s, np.float32), 'b': np.zeros(s[1], np.float32)}
+            for s in ((4, 8), (8, 8), (8, 1))]
+    pp = trk.pack_policy_params(zero, 4, device='cpu')
+    with pytest.raises(ValueError, match='replaces'):   # the policy is the action source
+        trk.cartpole_rollout(s0, cfg, 0, 4, 20, 1e-3, policy_params=pp)
+    with pytest.raises(ValueError, match='replaces'):
         trk.cartpole_rollout(s0, cfg, 0, 4, 20, 1e-3, draw_actions=False,
-                             policy_params=(torch.zeros(1),))
+                             actions=torch.zeros((4, 4)), policy_params=pp)
     with pytest.raises(ValueError):
         trk.cartpole_rollout(s0, cfg, 0, 4, 20, 1e-3, draw_actions=False)
 
