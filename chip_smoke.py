@@ -23,9 +23,15 @@ Phases, one JSON line each:
   7. k4_policy, k5_policy  K4 and K5 in policy mode (the committed actors:
                deterministic PPO with obs normalization, deterministic SAC
                256 wide with relu and squash, stochastic PPO with Philox
-               exploration; then the inputs the closed loop gives the kernel
-               for each committed model it admits) against their plain
-               versions at B=4096;
+               exploration; a ragged batch, B=4109, whose last tile of envs
+               is partly filled; a random 384 -> 1000 actor, whose H2 the
+               kernel runs in chunks; then the inputs the closed loop gives the
+               kernel for each committed model it admits) against their plain
+               versions at B=4096; each case also reports its time a step,
+               its shares of the ops bound and of the float32 ceiling
+               without fused multiply-adds, one block's time (32 envs), and
+               actor_library_ms, the actor alone as three torch.addmm in a
+               CUDA graph (a yardstick the port never calls);
   8. closed_loop  the slice's main path: make(algo, ...) -> ctrl.load(the
                committed *_stab model) -> ctrl.evaluate_fused(batch=4096) for
                PPO and SAC on cartpole and the 2D and 3D quads, each row's path
@@ -58,6 +64,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 B = 4096
+B_RAGGED = B + 13      # the policy mode's last tile of 32 envs partly filled
+CHUNKED_WIDTHS = (384, 1000)   # an actor whose H2 the policy kernel runs in chunks
+T_CHUNKED = 40
 N_SUB, DT = 20, 1e-3
 T_CHECK = {'cartpole': 300, 'quadrotor': 150, 'quadrotor_3D': 150}  # against the plain version
 T_PER_STEP = 1024      # the per-step path of the main path
@@ -233,9 +242,10 @@ def _rollout_cases(system, dev, T):
     return cases
 
 
-def rollout_ops(system, kw, T, done_total=0.0):
-    """Operations of a B-env, T-step rollout in mode ``kw``; ``done_total`` is
-    the run's summed done count (fresh states are drawn only where done)."""
+def rollout_ops(system, kw, T, done_total=0.0, batch=B):
+    """Operations of a ``batch``-env, T-step rollout in mode ``kw``;
+    ``done_total`` is the run's summed done count (fresh states are drawn only
+    where done)."""
     if system == 'cartpole':
         ops = N_SUB * OPS_SUBSTEP[system] + OPS_STEP_REST['action'] \
             + OPS_STEP_REST['reward'] + OPS_STEP_REST['done'] + OPS_STEP_REST['reset']
@@ -245,7 +255,7 @@ def rollout_ops(system, kw, T, done_total=0.0):
             ops += OPS_PHILOX + OPS_STEP_REST['uniform']
         if kw.get('constrained'):
             ops += OPS_STEP_REST['box_muller'] + OPS_STEP_REST['violation']
-        return B * T * ops
+        return batch * T * ops
     nx, nu = NX[system], NU[system]
     ops = N_SUB * OPS_SUBSTEP[system] + OPS_INVARIANT[system]
     ops += nu * (4 + 9)                  # denormalize, clip; motor model
@@ -257,16 +267,16 @@ def rollout_ops(system, kw, T, done_total=0.0):
         ops += OPS_PHILOX + OPS_UNIFORM4 + 2 * nu
     if kw.get('constrained'):
         ops += OPS_PHILOX + OPS_UNIFORM4 + nu // 2 * 13 + (nx + nu) * 4
-    n = B * T * ops
+    n = batch * T * ops
     reset_words = (nx + 3) // 4 * (OPS_PHILOX + OPS_UNIFORM4) if kw.get('randomized_reset') else 0
     return n + done_total * (reset_words + 2 * nx)
 
 
-def rollout_bytes(system, kw, T):
+def rollout_bytes(system, kw, T, batch=B):
     nx = NX[system]
-    n = B * (nx * 4 + nx * 4 + 4 * 4) + (40 if system == 'cartpole' else 105) * 4
+    n = batch * (nx * 4 + nx * 4 + 4 * 4) + (40 if system == 'cartpole' else 105) * 4
     if not kw.get('draw_actions', True):
-        n += T * B * NU[system] * 4
+        n += T * batch * NU[system] * 4
     if 'x_goal' in kw:
         n += kw['x_goal'].numel() * 4
     return n
@@ -417,9 +427,11 @@ def _model_path(algo, system):
 def _policy_cases(system, dev, T=None):
     """(name, T, state0, cfg, kwargs) of the checked policy modes of
     ``system``: three modes with the committed actors of its PPO and SAC
-    models on the benchmark env, then the launch inputs the closed loop
-    builds (``fused_eval.kernel_inputs``) for each committed model whose
-    config the kernel admits. ``T`` overrides every case's length."""
+    models on the benchmark env, the SAC actor on a ragged batch, a random
+    actor whose H2 the kernel runs in chunks, then the launch inputs the
+    closed loop builds (``fused_eval.kernel_inputs``) for each committed
+    model whose config the kernel admits. ``T`` overrides every case's
+    length."""
     from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
     from safe_control_gym_tpu_torch.experiments import fused_eval as fe
     from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
@@ -460,6 +472,33 @@ def _policy_cases(system, dev, T=None):
             kw.update(policy_activation='tanh', policy_stochastic=True)
         kw['policy_params'] = pp
         cases.append((name, T or T_CHECK[system], states.state.contiguous(), cfg, kw))
+    # A batch whose last tile of envs is partly filled: the widest actor (W2
+    # streamed), with action noise and Philox draws.
+    params = load_checkpoint(_model_path('sac', model_system))['params']
+    env = bs._make(system, True, device=dev)
+    states, _ = env.func.reset_batch(g, B_RAGGED)
+    cases.append(('ragged_batch_sac_constrained', T or T_CHECK[system],
+                  states.state.contiguous(), bs._kernel_cfg(system, env, True),
+                  dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
+                       draw_actions=False, constrained=True,
+                       randomized_reset=env.RANDOMIZED_INIT,
+                       policy_params=rk.pack_policy_params(params['actor'], nx, device=dev),
+                       policy_activation='relu', policy_squash=True)))
+    # An actor too wide for the h2 of 32 envs: a random 384 -> 1000 one, W2
+    # streamed and H2 run in chunks (the last one narrower), stochastic.
+    widths = (nx, *CHUNKED_WIDTHS, 2 * nu)
+    actor = [{'w': (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+              'b': (0.1 * rng.standard_normal(b)).astype(np.float32)}
+             for a, b in zip(widths[:-1], widths[1:])]
+    cfg = bs._kernel_cfg(system, env, True)
+    cfg[layout['P_STD']:layout['P_STD'] + nu] = 0.3
+    cases.append(('chunked_h2_stochastic', T or T_CHUNKED, states.state.contiguous(), cfg,
+                  dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
+                       draw_actions=False, constrained=True,
+                       randomized_reset=env.RANDOMIZED_INIT,
+                       policy_params=rk.pack_policy_params(actor, nx, device=dev),
+                       policy_activation='relu', policy_stochastic=True,
+                       policy_squash=True)))
     if model_system == 'quadrotor_2D':     # the gates send it to the per-step path
         return cases
     for algo, stochastic in (('ppo', False), ('ppo', True), ('sac', False)):
@@ -484,8 +523,8 @@ def mlp_ops(pp, nu):
             + 2 * (pp.h1 + pp.h2) + nu + 4 * pp.nx)
 
 
-def policy_rollout_ops(system, kw, T, done_total=0.0):
-    """Operations of a B-env, T-step rollout in policy mode ``kw``."""
+def policy_rollout_ops(system, kw, T, done_total=0.0, batch=B):
+    """Operations of a ``batch``-env, T-step rollout in policy mode ``kw``."""
     nu = NU[system]
     per_step = mlp_ops(kw['policy_params'], nu)
     if kw.get('policy_stochastic'):
@@ -497,16 +536,44 @@ def policy_rollout_ops(system, kw, T, done_total=0.0):
             per_step += OPS_PHILOX + OPS_UNIFORM4 + nu // 2 * 13
     if kw.get('policy_squash'):
         per_step += nu
-    return rollout_ops(system, kw, T, done_total) + B * T * per_step
+    return rollout_ops(system, kw, T, done_total, batch) + batch * T * per_step
 
 
-def policy_rollout_bytes(system, kw, T):
+def policy_rollout_bytes(system, kw, T, batch=B):
     """Bytes of a policy-mode rollout: the open-loop ones and the actor's
     weights the kernel reads (the first nu columns of W3 and b3)."""
     pp, nu = kw['policy_params'], NU[system]
     floats = (2 * pp.nx + pp.nx * pp.h1 + pp.h1 + pp.h1 * pp.h2 + pp.h2
               + pp.h2 * nu + nu)
-    return rollout_bytes(system, kw, T) + floats * 4
+    return rollout_bytes(system, kw, T, batch) + floats * 4
+
+
+def actor_library_ms(pp, nu, activation, T, dev, batch=B):
+    """A yardstick, never called by the port: the actor alone on ``batch``
+    random obs as three ``torch.addmm`` and the activation (the first ``nu``
+    outputs, TF32 off), captured in a CUDA graph; one replay's device time
+    times T."""
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    _, _, w1, b1, w2, b2, w3, b3 = rk._policy_views(pp)
+    w3, b3 = w3[:, :nu].contiguous(), b3[:nu].contiguous()
+    act = torch.tanh if activation == 'tanh' else torch.relu
+    obs = torch.randn((batch, pp.nx), generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+
+    def forward():
+        h = act(torch.addmm(b1, obs, w1))
+        return torch.addmm(b3, act(torch.addmm(b2, h, w2)), w3)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            forward()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        forward()
+    return time_ms(graph.replay, 50) * T
 
 
 def check_policy(system, dev, length=None):
@@ -514,6 +581,7 @@ def check_policy(system, dev, length=None):
     ``_policy_cases``, timed; the SAC case (the widest actor) gives the
     kernels line's times. ``length`` overrides every case's T."""
     from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     meta = ROLLOUT[system]
     kernel, plain = _kernel(system)[1], _plain_rollout(system)
     phase = meta['id'].lower() + '_policy'
@@ -535,19 +603,27 @@ def check_policy(system, dev, length=None):
                                            <= 1e-4 + 1e-4 * p['reward_sum'].abs()).all())
               and not any(flips.values()))
         pp = kw['policy_params']
+        n_envs = s0.shape[0]
         ms = time_ms(lambda: kernel(s0, cfg, 8, T, **kw), 3)
         done_total = float(k['done_count'].sum())
-        b_ms, b_by = bound_ms(policy_rollout_bytes(system, kw, T),
-                              policy_rollout_ops(system, kw, T, done_total))
-        # One warp (B=32) against the full batch: the same time means one
-        # env's serial chain sets the pace.
-        warp_s0 = s0[:32].contiguous()
-        one_warp_ms = time_ms(lambda: kernel(warp_s0, cfg, 8, T, **kw), 3)
+        n_ops = policy_rollout_ops(system, kw, T, done_total, n_envs)
+        b_ms, b_by = bound_ms(policy_rollout_bytes(system, kw, T, n_envs), n_ops)
+        # Without fused multiply-adds each one is two instructions: the
+        # kernel can at best take twice the operations bound.
+        ceiling_ms = 2 * n_ops / PEAK_OPS_PER_S * 1e3
+        # One block (its 32 envs) against the full batch: the same time
+        # means one block's serial chain sets the pace.
+        block_s0 = s0[:rk._POLICY_ENVS].contiguous()
+        one_block_ms = time_ms(lambda: kernel(block_s0, cfg, 8, T, **kw), 3)
         cases[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           one_warp_ms=one_warp_ms, T=T,
+                           us_per_step=ms * 1e3 / T, share_of_bound=b_ms / ms,
+                           f32_ceiling_ms=ceiling_ms, share_of_ceiling=ceiling_ms / ms,
+                           actor_library_ms=actor_library_ms(
+                               pp, NU[system], kw['policy_activation'], T, dev, n_envs),
+                           one_block_ms=one_block_ms, T=T, B=n_envs,
                            actor=f'{pp.nx}->{pp.h1}->{pp.h2}->{pp.nu_out}')
         min_done = float(k['done_count'].min())
-        emit(phase, kernel=meta['name'], case=name, B=B, state_err=state_err,
+        emit(phase, kernel=meta['name'], case=name, state_err=state_err,
              reward_err=rew_err, envs_with_other_counts=flips, ok=ok,
              mean_done_count=float(k['done_count'].mean()), min_done_count=min_done,
              mean_violation_count=float(k['violation_count'].mean()), **cases[name])
@@ -567,7 +643,9 @@ def check_policy(system, dev, length=None):
                 kernel_ms=sac['ms'], plain_ms=sac['plain_ms'], bound_ms=sac['bound_ms'],
                 bound_by=sac['bound_by'], library_ms=None,
                 library_note='none: no single PyTorch call computes a closed-loop '
-                             'T-step env rollout',
+                             'T-step env rollout; actor_library_ms times the actor alone',
+                actor_library_ms=sac['actor_library_ms'], f32_ceiling_ms=sac['f32_ceiling_ms'],
+                one_block_ms=sac['one_block_ms'],
                 shape=f'B={B} T={sac["T"]} deterministic SAC actor {sac["actor"]}',
                 cases=cases, id=meta['id'])
 

@@ -17,7 +17,9 @@
 // reads its inputs once and writes its outputs once, and at B=4096 it is
 // bound by the latency of the dependent chain (T x n_substeps substeps of
 // sin, cos and a reciprocal), not by FLOP/s or bytes. In policy mode the
-// actor's float32 products come first in each step (policy_mlp.cuh).
+// actor's float32 products dominate each step, and a separate kernel,
+// cartpole_policy_rollout_kernel, runs them with the whole block
+// (policy_mlp.cuh); both kernels share the per-env step, cartpole_step.
 //
 // Numerics. Every expression follows the plain PyTorch version
 // (ops/physics_kernels.py, ops/rollout_kernels.py) operation for
@@ -25,9 +27,10 @@
 // intrinsics (ops/_build.py), so each float op rounds as PyTorch's own
 // elementwise op does.
 //
-// Launch shape. The wrappers pick the block size so that the grid covers
-// every SM (32 threads a block at B=4096 on 132 SMs): with one thread per
-// env, a larger block would leave most SMs idle.
+// Launch shape. For K1 and K4's open loop the wrappers pick the block size so
+// that the grid covers every SM (32 threads a block at B=4096 on 132 SMs):
+// with one thread per env, a larger block would leave most SMs idle. The
+// policy mode launches 256 threads for every 32 envs.
 //
 // Randomness (K4). The Philox4x32-10 of philox.cuh keyed on (seed, 0),
 // counter (env, step, j, 0) for j = 0, 1: eight uint32 per env and step, the
@@ -42,14 +45,15 @@
 
 #include "philox.cuh"
 #include "policy_mlp.cuh"
+#include "rollout_modes.cuh"
 
 namespace {
 
 using scg::F_POLICY;
 using scg::F_POLICY_RELU;
-using scg::F_POLICY_SQUASH;
-using scg::F_POLICY_STOCHASTIC;
 using scg::kTwoPi;
+using scg::Modes;
+using scg::modes;
 using scg::standard_normal;
 using scg::uniform4;
 
@@ -64,13 +68,6 @@ enum {
   GOAL = 9, TOL_SQ = 13, X_THRESH = 14, TH_THRESH = 15, MAX_STEPS = 16,
   W_ACT = 17, NOISE_STD = 18, INIT_LO = 19, INIT_HI = 23, W_STATE = 27,
   CON_HI = 31, P_STD = 35, U_GOAL = 39, CFG_LEN = 40
-};
-
-// Rollout mode flags (ops/rollout_kernels.py _FLAGS).
-enum {
-  F_DRAW_ACTIONS = 1, F_CONSTRAINED = 2, F_ACTION_NOISE = 4,
-  F_RANDOMIZED_RESET = 8, F_REW_EXPONENTIAL = 16, F_DONE_ON_OOB = 32,
-  F_TRACKING = 64, F_QUADRATIC_COST = 128
 };
 
 // n_substeps semi-implicit-Euler updates of the manipulator-form cartpole
@@ -126,148 +123,195 @@ __device__ __forceinline__ float wrap_angle(float th) {
   return th - kTwoPi * floorf((th + kPi) * kInv2Pi);
 }
 
-// POLICY: the policy mode, compiled apart so that the open-loop modes keep
-// their own register allocation.
-template <bool POLICY>
+// One env of the rollout: its state and what it accumulates.
+struct CartEnv {
+  float x, xd, th, thd;
+  int step;
+  float reward_sum;
+  int done_count, viol_count;
+};
+
+__device__ __forceinline__ CartEnv load_env(const float* __restrict__ state0, int b) {
+  return CartEnv{state0[4 * b + 0], state0[4 * b + 1], state0[4 * b + 2],
+                 state0[4 * b + 3], 0, 0.0f, 0, 0};
+}
+
+__device__ __forceinline__ void store_env(const CartEnv& e, int b, float* __restrict__ state_out,
+                                          float* __restrict__ step_out,
+                                          float* __restrict__ reward_out,
+                                          float* __restrict__ done_out,
+                                          float* __restrict__ viol_out) {
+  state_out[4 * b + 0] = e.x;
+  state_out[4 * b + 1] = e.xd;
+  state_out[4 * b + 2] = e.th;
+  state_out[4 * b + 3] = e.thd;
+  step_out[b] = (float)e.step;
+  reward_out[b] = e.reward_sum;
+  done_out[b] = (float)e.done_count;
+  viol_out[b] = (float)e.viol_count;
+}
+
+// The rest of one control step after the raw action, for one env: physical
+// -> noisy -> clipped action, the substeps, reward, done, violations and the
+// auto-reset. rnd holds the step's eight random rows.
+__device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[CFG_LEN],
+                                              float raw, const float (&rnd)[8],
+                                              const float* __restrict__ x_goal,
+                                              int n_goal, int n_substeps, float dt,
+                                              CartEnv& e) {
+  const float phys = raw * c[ACT_SCALE];
+  float noisy = phys;
+  if (m.action_noise) noisy = phys + c[NOISE_STD] * standard_normal(rnd[1], rnd[2]);
+  const float force = fminf(fmaxf(noisy, c[PHYS_LO]), c[PHYS_HI]);
+
+  cartpole_substeps(e.x, e.xd, e.th, e.thd, force, 0.0f, 0.0f, c[POLE_MASS],
+                    c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt);
+
+  // Goal: constant, or this env's own waypoint X_GOAL[step + 1]
+  // (X_GOAL[step] under the quadratic cost).
+  float g0 = c[GOAL + 0], g1 = c[GOAL + 1], g2 = c[GOAL + 2], g3 = c[GOAL + 3];
+  if (m.tracking) {
+    const int idx = min(e.step + (m.quadratic ? 0 : 1), n_goal - 1);
+    g0 = x_goal[4 * idx + 0];
+    g1 = x_goal[4 * idx + 1];
+    g2 = x_goal[4 * idx + 2];
+    g3 = x_goal[4 * idx + 3];
+  }
+  const float e0 = e.x - g0, e1 = e.xd - g1, e3 = e.thd - g3;
+  float rew;
+  if (m.quadratic) {
+    // Unwrapped angle, clipped action against U_GOAL, never exponential.
+    const float e2q = e.th - g2;
+    const float du = force - c[U_GOAL];
+    rew = -(c[W_STATE + 0] * e0 * e0 + c[W_STATE + 1] * e1 * e1
+            + c[W_STATE + 2] * e2q * e2q + c[W_STATE + 3] * e3 * e3
+            + c[W_ACT] * du * du);
+  } else {
+    // Wrapped angle and the noisy action.
+    const float ew = wrap_angle(e.th) - g2;
+    const float dist = c[W_STATE + 0] * e0 * e0 + c[W_STATE + 1] * e1 * e1
+        + c[W_STATE + 2] * ew * ew + c[W_STATE + 3] * e3 * e3
+        + c[W_ACT] * noisy * noisy;
+    rew = m.rew_exponential ? expf(-dist) : -dist;
+  }
+
+  // Done: goal (stabilization only, unwrapped), out of bounds, time limit.
+  bool done = false;
+  if (!m.tracking) {
+    const float e2 = e.th - c[GOAL + 2];
+    done = e0 * e0 + e1 * e1 + e2 * e2 + e3 * e3 < c[TOL_SQ];
+  }
+  if (m.done_on_oob) {
+    done = done || fabsf(e.x) > c[X_THRESH] || fabsf(e.th) > c[TH_THRESH];
+  }
+  const int new_step = e.step + 1;
+  done = done || (float)new_step >= c[MAX_STEPS];
+
+  // Default state box and input box, on the noisy pre-clip action.
+  if (m.constrained) {
+    const bool viol = fabsf(e.x) > c[CON_HI + 0] || fabsf(e.xd) > c[CON_HI + 1]
+        || fabsf(e.th) > c[CON_HI + 2] || fabsf(e.thd) > c[CON_HI + 3]
+        || noisy > c[PHYS_HI] || noisy < c[PHYS_LO];
+    e.viol_count += viol;
+  }
+
+  // Auto-reset: fresh states are drawn every step, selected where done.
+  if (done) {
+    if (m.randomized_reset) {
+      e.x = c[INIT_LO + 0] + rnd[4] * (c[INIT_HI + 0] - c[INIT_LO + 0]);
+      e.xd = c[INIT_LO + 1] + rnd[5] * (c[INIT_HI + 1] - c[INIT_LO + 1]);
+      e.th = c[INIT_LO + 2] + rnd[6] * (c[INIT_HI + 2] - c[INIT_LO + 2]);
+      e.thd = c[INIT_LO + 3] + rnd[7] * (c[INIT_HI + 3] - c[INIT_LO + 3]);
+    } else {
+      e.x = c[INIT_LO + 0];
+      e.xd = c[INIT_LO + 1];
+      e.th = c[INIT_LO + 2];
+      e.thd = c[INIT_LO + 3];
+    }
+  }
+  e.step = done ? 0 : new_step;
+  e.reward_sum += rew;
+  e.done_count += done;
+}
+
+// The open loop: one thread per env, actions drawn or replayed.
 __global__ void cartpole_rollout_kernel(
     const float* __restrict__ state0, const float* __restrict__ cfg_g,
     const float* __restrict__ actions, const float* __restrict__ x_goal,
-    const float* __restrict__ policy_p, float* __restrict__ state_out,
-    float* __restrict__ step_out, float* __restrict__ reward_out,
-    float* __restrict__ done_out, float* __restrict__ viol_out, int B, int T,
-    int n_substeps, float dt, uint32_t seed, int n_goal, int h1, int h2,
-    int nu_out, float clip_obs, int flags) {
-  extern __shared__ float hidden[];  // policy mode: [h1][blockDim.x]
+    float* __restrict__ state_out, float* __restrict__ step_out,
+    float* __restrict__ reward_out, float* __restrict__ done_out,
+    float* __restrict__ viol_out, int B, int T, int n_substeps, float dt,
+    uint32_t seed, int n_goal, int flags) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   float c[CFG_LEN];
 #pragma unroll
   for (int k = 0; k < CFG_LEN; ++k) c[k] = cfg_g[k];
-
-  const bool draw_actions = flags & F_DRAW_ACTIONS;
-  const bool constrained = flags & F_CONSTRAINED;
-  const bool action_noise = flags & F_ACTION_NOISE;
-  const bool randomized_reset = flags & F_RANDOMIZED_RESET;
-  const bool rew_exponential = flags & F_REW_EXPONENTIAL;
-  const bool done_on_oob = flags & F_DONE_ON_OOB;
-  const bool tracking = flags & F_TRACKING;
-  const bool quadratic = flags & F_QUADRATIC_COST;
-  const bool policy_stochastic = flags & F_POLICY_STOCHASTIC;
-  const bool policy_squash = flags & F_POLICY_SQUASH;
-  const scg::PolicyMLP mlp{policy_p, h1, h2, nu_out, clip_obs,
-                           (flags & F_POLICY_RELU) != 0};
-  float* hid = hidden + threadIdx.x;
-
-  float x = state0[4 * b + 0], xd = state0[4 * b + 1];
-  float th = state0[4 * b + 2], thd = state0[4 * b + 3];
-  int step = 0;
-  float reward_sum = 0.0f;
-  int done_count = 0, viol_count = 0;
+  const Modes m = modes(flags);
+  CartEnv e = load_env(state0, b);
 
   for (int t = 0; t < T; ++t) {
     float rnd[8];
-    if (draw_actions || action_noise || (POLICY && policy_stochastic)) {
-      uniform4(seed, b, t, 0u, rnd);
-    }
-    if (randomized_reset) uniform4(seed, b, t, 1u, rnd + 4);
-
-    // Action pipeline: raw -> physical -> noisy -> clipped.
-    float raw;
-    if constexpr (POLICY) {
-      // The actor on the state at the start of the step, exploration noise
-      // from rows 0 and 3, then the squash.
-      const float s[4] = {x, xd, th, thd};
-      float mu[1];
-      scg::policy_mean<4, 1>(mlp, s, hid, blockDim.x, mu);
-      raw = mu[0];
-      if (policy_stochastic) raw = raw + c[P_STD] * standard_normal(rnd[0], rnd[3]);
-      if (policy_squash) raw = tanhf(raw);
-    } else {
-      raw = draw_actions ? c[ACT_LO] + rnd[0] * (c[ACT_HI] - c[ACT_LO])
-                         : actions[(size_t)t * B + b];
-    }
-    const float phys = raw * c[ACT_SCALE];
-    float noisy = phys;
-    if (action_noise) noisy = phys + c[NOISE_STD] * standard_normal(rnd[1], rnd[2]);
-    const float force = fminf(fmaxf(noisy, c[PHYS_LO]), c[PHYS_HI]);
-
-    cartpole_substeps(x, xd, th, thd, force, 0.0f, 0.0f, c[POLE_MASS],
-                      c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt);
-
-    // Goal: constant, or this env's own waypoint X_GOAL[step + 1]
-    // (X_GOAL[step] under the quadratic cost).
-    float g0 = c[GOAL + 0], g1 = c[GOAL + 1], g2 = c[GOAL + 2], g3 = c[GOAL + 3];
-    if (tracking) {
-      const int idx = min(step + (quadratic ? 0 : 1), n_goal - 1);
-      g0 = x_goal[4 * idx + 0];
-      g1 = x_goal[4 * idx + 1];
-      g2 = x_goal[4 * idx + 2];
-      g3 = x_goal[4 * idx + 3];
-    }
-    const float e0 = x - g0, e1 = xd - g1, e3 = thd - g3;
-    float rew;
-    if (quadratic) {
-      // Unwrapped angle, clipped action against U_GOAL, never exponential.
-      const float e2q = th - g2;
-      const float du = force - c[U_GOAL];
-      rew = -(c[W_STATE + 0] * e0 * e0 + c[W_STATE + 1] * e1 * e1
-              + c[W_STATE + 2] * e2q * e2q + c[W_STATE + 3] * e3 * e3
-              + c[W_ACT] * du * du);
-    } else {
-      // Wrapped angle and the noisy action.
-      const float ew = wrap_angle(th) - g2;
-      const float dist = c[W_STATE + 0] * e0 * e0 + c[W_STATE + 1] * e1 * e1
-          + c[W_STATE + 2] * ew * ew + c[W_STATE + 3] * e3 * e3
-          + c[W_ACT] * noisy * noisy;
-      rew = rew_exponential ? expf(-dist) : -dist;
-    }
-
-    // Done: goal (stabilization only, unwrapped), out of bounds, time limit.
-    bool done = false;
-    if (!tracking) {
-      const float e2 = th - c[GOAL + 2];
-      done = e0 * e0 + e1 * e1 + e2 * e2 + e3 * e3 < c[TOL_SQ];
-    }
-    if (done_on_oob) {
-      done = done || fabsf(x) > c[X_THRESH] || fabsf(th) > c[TH_THRESH];
-    }
-    const int new_step = step + 1;
-    done = done || (float)new_step >= c[MAX_STEPS];
-
-    // Default state box and input box, on the noisy pre-clip action.
-    if (constrained) {
-      const bool viol = fabsf(x) > c[CON_HI + 0] || fabsf(xd) > c[CON_HI + 1]
-          || fabsf(th) > c[CON_HI + 2] || fabsf(thd) > c[CON_HI + 3]
-          || noisy > c[PHYS_HI] || noisy < c[PHYS_LO];
-      viol_count += viol;
-    }
-
-    // Auto-reset: fresh states are drawn every step, selected where done.
-    if (done) {
-      if (randomized_reset) {
-        x = c[INIT_LO + 0] + rnd[4] * (c[INIT_HI + 0] - c[INIT_LO + 0]);
-        xd = c[INIT_LO + 1] + rnd[5] * (c[INIT_HI + 1] - c[INIT_LO + 1]);
-        th = c[INIT_LO + 2] + rnd[6] * (c[INIT_HI + 2] - c[INIT_LO + 2]);
-        thd = c[INIT_LO + 3] + rnd[7] * (c[INIT_HI + 3] - c[INIT_LO + 3]);
-      } else {
-        x = c[INIT_LO + 0];
-        xd = c[INIT_LO + 1];
-        th = c[INIT_LO + 2];
-        thd = c[INIT_LO + 3];
-      }
-    }
-    step = done ? 0 : new_step;
-    reward_sum += rew;
-    done_count += done;
+    if (m.draw_actions || m.action_noise) uniform4(seed, b, t, 0u, rnd);
+    if (m.randomized_reset) uniform4(seed, b, t, 1u, rnd + 4);
+    const float raw = m.draw_actions ? c[ACT_LO] + rnd[0] * (c[ACT_HI] - c[ACT_LO])
+                                     : actions[(size_t)t * B + b];
+    cartpole_step(m, c, raw, rnd, x_goal, n_goal, n_substeps, dt, e);
   }
-  state_out[4 * b + 0] = x;
-  state_out[4 * b + 1] = xd;
-  state_out[4 * b + 2] = th;
-  state_out[4 * b + 3] = thd;
-  step_out[b] = (float)step;
-  reward_out[b] = reward_sum;
-  done_out[b] = (float)done_count;
-  viol_out[b] = (float)viol_count;
+  store_env(e, b, state_out, step_out, reward_out, done_out, viol_out);
+}
+
+// The closed loop (policy_mlp.cuh): a block of kPolicyThreads threads for
+// kPolicyEnvs envs. The threads of warp 0 own one env each and run
+// cartpole_step; the whole block runs the actor. A thread past the last env
+// of a partly filled tile keeps a zero state and skips the step, but stays in
+// the loop for the block's barriers.
+// CHUNKED: H2 runs in chunks of w2_cols units (policy_mlp.cuh).
+template <bool CHUNKED>
+__global__ void __launch_bounds__(scg::kPolicyThreads) cartpole_policy_rollout_kernel(
+    const float* __restrict__ state0, const float* __restrict__ cfg_g,
+    const float* __restrict__ x_goal, const float* __restrict__ policy_p,
+    float* __restrict__ state_out, float* __restrict__ step_out,
+    float* __restrict__ reward_out, float* __restrict__ done_out,
+    float* __restrict__ viol_out, int B, int T, int n_substeps, float dt,
+    uint32_t seed, int n_goal, int h1, int h2, int nu_out, int w2_rows, int w2_cols,
+    float clip_obs, int flags) {
+  const scg::PolicyMLP mlp{policy_p, h1, h2, nu_out, clip_obs, (flags & F_POLICY_RELU) != 0};
+  const scg::PolicySmem sm = scg::policy_smem(4, 1, h1, h2, w2_rows, w2_cols);
+  const bool w2_resident = scg::policy_w2_resident(h1, h2, w2_rows, w2_cols);
+  scg::W2Ring<CHUNKED> ring;
+  scg::policy_stage<4, 1>(mlp, sm, w2_rows, w2_cols, ring);
+  __syncthreads();
+
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * scg::kPolicyEnvs + lane;
+  const bool env_thread = lane < scg::kPolicyEnvs;
+  const bool live = env_thread && b < B;
+  float c[CFG_LEN];
+#pragma unroll
+  for (int k = 0; k < CFG_LEN; ++k) c[k] = cfg_g[k];
+  const Modes m = modes(flags);
+  CartEnv e = live ? load_env(state0, b) : CartEnv{0.0f, 0.0f, 0.0f, 0.0f, 0, 0.0f, 0, 0};
+
+  for (int t = 0; t < T; ++t) {
+    if (env_thread) {
+      const float s[4] = {e.x, e.xd, e.th, e.thd};
+      scg::policy_write_obs<4>(mlp, sm, s, lane);
+    }
+    scg::policy_actor<4, 1>(mlp, sm, w2_resident, w2_cols, ring);
+    if (live) {
+      // The actor's mean, exploration noise from rows 0 and 3, the squash.
+      float rnd[8];
+      if (m.action_noise || m.policy_stochastic) uniform4(seed, b, t, 0u, rnd);
+      if (m.randomized_reset) uniform4(seed, b, t, 1u, rnd + 4);
+      float raw = sm.mu[lane];
+      if (m.policy_stochastic) raw = raw + c[P_STD] * standard_normal(rnd[0], rnd[3]);
+      if (m.policy_squash) raw = tanhf(raw);
+      cartpole_step(m, c, raw, rnd, x_goal, n_goal, n_substeps, dt, e);
+    }
+  }
+  ring.drain();
+  if (live) store_env(e, b, state_out, step_out, reward_out, done_out, viol_out);
 }
 
 }  // namespace
@@ -297,24 +341,42 @@ int scg_cartpole_advance(const void* states, const void* forces,
 }
 
 // policy: the packed actor (ops/rollout_kernels.py pack_policy_params) with
-// widths h1, h2, nu_out, read when flags has F_POLICY.
+// widths h1, h2, nu_out, read when flags has F_POLICY. A policy launch takes
+// the geometry of ops/rollout_kernels.py _policy_launch (envs and threads a
+// block, W2's rows and columns a tile, dynamic shared memory bytes) and
+// refuses any other; an open-loop launch takes `threads` a block and ignores
+// the rest.
 int scg_cartpole_rollout(const void* state0, const void* cfg,
                          const void* actions, const void* x_goal,
                          const void* policy, void* state_out, void* step_out,
                          void* reward_out, void* done_out, void* viol_out, int B,
                          int T, int n_substeps, float dt, unsigned int seed,
                          int n_goal, int h1, int h2, int nu_out, float clip_obs,
-                         int flags, int threads, void* stream) {
-  if (B > 0) {
-    auto kernel = (flags & F_POLICY) ? cartpole_rollout_kernel<true>
-                                     : cartpole_rollout_kernel<false>;
-    const size_t smem = scg::policy_smem(flags, h1, threads);
-    kernel<<<(B + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(
+                         int flags, int threads, int envs, int w2_rows, int w2_cols,
+                         int smem, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (!(flags & F_POLICY)) {
+    cartpole_rollout_kernel<<<(B + threads - 1) / threads, threads, 0,
+                              (cudaStream_t)stream>>>(
         (const float*)state0, (const float*)cfg, (const float*)actions,
-        (const float*)x_goal, (const float*)policy, (float*)state_out,
-        (float*)step_out, (float*)reward_out, (float*)done_out, (float*)viol_out,
-        B, T, n_substeps, dt, seed, n_goal, h1, h2, nu_out, clip_obs, flags);
+        (const float*)x_goal, (float*)state_out, (float*)step_out, (float*)reward_out,
+        (float*)done_out, (float*)viol_out, B, T, n_substeps, dt, seed, n_goal, flags);
+    return (int)cudaGetLastError();
   }
+  if (!scg::policy_geometry_ok(policy, 4, 1, h1, h2, w2_rows, w2_cols, envs, threads,
+                                smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = w2_cols < h2 ? cartpole_policy_rollout_kernel<true>
+                             : cartpole_policy_rollout_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(B + envs - 1) / envs, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)state0, (const float*)cfg, (const float*)x_goal, (const float*)policy,
+      (float*)state_out, (float*)step_out, (float*)reward_out, (float*)done_out,
+      (float*)viol_out, B, T, n_substeps, dt, seed, n_goal, h1, h2, nu_out, w2_rows,
+      w2_cols, clip_obs, flags);
   return (int)cudaGetLastError();
 }
 

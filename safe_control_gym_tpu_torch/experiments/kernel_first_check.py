@@ -13,10 +13,16 @@ committed actors against their plain versions) at T=40. Run it from the
 root of a checkout. It prints what it finds of the open-loop kernels and
 raises where the card or the build fails; the policy mode is held to
 ``chip_smoke.py``'s tolerances, and raises there.
+
+``--floor`` times, per system at B=4096, T=2048, the policy kernel with an
+8-wide zero actor (stochastic, so the exploration draws run) beside the
+open-loop kernel replaying actions: the first is the policy kernel's step
+without the actor's products, the second the open loop's serial chain.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -45,6 +51,43 @@ def ptxas_report(name: str = 'quad_kernels') -> str:
     return proc.stdout + proc.stderr
 
 
+def policy_smem_report():
+    """Dynamic shared memory and W2 tile of each committed and bench actor."""
+    for nx, nu, hidden, nu_out in ((4, 1, 64, 1), (6, 2, 64, 2), (12, 4, 64, 4),
+                                   (6, 2, 128, 2), (12, 4, 128, 4), (4, 1, 256, 2),
+                                   (6, 2, 256, 4), (12, 4, 256, 8)):
+        rows, cols = rk._policy_w2_tile(nx, nu, hidden, hidden)
+        print(f'actor {nx}->{hidden}->{hidden}->{nu_out}: W2 tile {rows} x {cols}, dynamic '
+              'smem', rk._policy_smem_bytes(nx, nu, hidden, hidden, rows, cols), 'bytes')
+
+
+def policy_floor(dev, T=2048):
+    """The policy kernel's time a step with an 8-wide actor against the open
+    loop's, per system (see the module docstring)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
+    for system in chip_smoke.SYSTEMS:
+        env = _make(system, False, device=dev)
+        cfg = _kernel_cfg(system, env, False)
+        nx, nu = chip_smoke.NX[system], chip_smoke.NU[system]
+        s0 = env.func.reset_batch(torch.Generator(device=dev).manual_seed(0), B)[0].state
+        s0 = s0.contiguous()
+        kernel = _kernel(system)[1]
+        zero = [{'w': torch.zeros(shape), 'b': torch.zeros(shape[1])}
+                for shape in ((nx, 8), (8, 8), (8, nu))]
+        common = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
+                      randomized_reset=env.RANDOMIZED_INIT)
+        policy = dict(draw_actions=False, policy_stochastic=True,
+                      policy_params=rk.pack_policy_params(zero, nx, device=dev), **common)
+        actions = torch.zeros((T, B) if nu == 1 else (T, B, nu), device=dev)
+        replay = dict(draw_actions=False, actions=actions, **common)
+        ms_policy = chip_smoke.time_ms(lambda: kernel(s0, cfg, 3, T, **policy), 3)
+        ms_open = chip_smoke.time_ms(lambda: kernel(s0, cfg, 3, T, **replay), 3)
+        print('floor', system, 'policy kernel, 8-wide actor:', ms_policy * 1e3 / T,
+              'us a step; open loop, replay:', ms_open * 1e3 / T, 'us a step')
+
+
 def policy_checks(dev, T=40):
     """``chip_smoke.py``'s k4_policy and k5_policy phases at a short ``T``."""
     sys.path.insert(0, ROOT)
@@ -54,9 +97,14 @@ def policy_checks(dev, T=40):
 
 
 def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--floor', action='store_true',
+                        help='also time the policy kernel without the actor\'s products')
+    args = parser.parse_args()
     dev = require_cuda('cuda')
     print(ptxas_report('cartpole_kernels'))
     print(ptxas_report())
+    policy_smem_report()
     t0 = time.perf_counter()
     _build.build_all()
     print('build', time.perf_counter() - t0, 's')
@@ -106,6 +154,8 @@ def main():
     print('k4 state err', float((k['state'] - p['state']).abs().max()),
           'reward err', float((k['reward_sum'] - p['reward_sum']).abs().max()))
     policy_checks(dev)
+    if args.floor:
+        policy_floor(dev)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True).stdout)
 

@@ -59,9 +59,12 @@ observation normalization folded in, plus optional Gaussian exploration
 rest of the step is unchanged. The weights travel as one contiguous float32
 buffer [nmean (nx), ninv (nx), W1 (nx, H1), b1, W2 (H1, H2), b2,
 W3 (H2, nu_out), b3], in-major, in place of the TPU's padded (8, H) and
-(ROWS, 1) blocks. The kernels (``csrc/policy_mlp.cuh``) and the plain versions
-accumulate every unit from 0 in ascending input order, one multiply and one
-add at a time, so they agree value by value there too.
+(ROWS, 1) blocks. On the card the policy mode is a kernel of its own: a block
+of 256 threads for 32 envs, one thread of warp 0 stepping each env and the
+whole block running the actor's products from shared memory
+(``csrc/policy_mlp.cuh``, :func:`_policy_launch`). The kernels and the plain
+versions accumulate every unit from 0 in ascending input order, one multiply
+and one add at a time, so they agree value by value there too.
 """
 
 from __future__ import annotations
@@ -139,18 +142,71 @@ _QUAD_SHAPE = {
     3: dict(nx=12, nu=4, n_motor=1, oob_dims=(0, 2, 4, 6, 7, 8)),
 }
 
-# Mode bits of the kernels' ``flags`` argument (csrc/*.cu, csrc/policy_mlp.cuh).
+# Mode bits of the kernels' ``flags`` argument (csrc/rollout_modes.cuh).
 _FLAGS = dict(draw_actions=1, constrained=2, action_noise=4,
               randomized_reset=8, rew_exponential=16, done_on_oob=32,
               tracking=64, quadratic_cost=128, policy=256,
               policy_stochastic=512, policy_squash=1024, policy_relu=2048)
 
-# The policy mode's block: one warp, whose hidden layer ([unit][thread], 4
-# bytes each) must fit in the 48 KB of shared memory a launch gets without
-# opting in; the kernel computes hidden units eight at a time.
-_POLICY_THREADS = 32
-_POLICY_MAX_H1 = 48 * 1024 // (4 * _POLICY_THREADS)
-_POLICY_UNIT_TILE = 8
+# The policy mode's block (csrc/policy_mlp.cuh kPolicyThreads, kPolicyEnvs):
+# 256 threads for a tile of 32 envs. Its dynamic shared memory holds the
+# actor's weights and activations; a block may use 232,448 bytes, of which the
+# quad kernel's static cfg vector takes 432 (512 kept free). W2 is staged
+# whole where it fits, else streamed through two tiles of W2_RING_ROWS rows;
+# where not even one tile of all H2 columns and the h2 of H2 units fit, H2
+# runs in chunks of fewer units.
+_POLICY_THREADS = 256
+_POLICY_ENVS = 32
+_POLICY_SMEM_MAX = 232448 - 512
+_POLICY_W2_RING_ROWS = (32, 16, 8)
+
+
+class PolicyLaunch(NamedTuple):
+    """The launch arguments of a rollout kernel: the packed actor's pointer
+    and widths, and the block geometry (envs and threads a block, W2's rows
+    and columns a tile, dynamic shared memory bytes). Open loop: no actor,
+    ``threads`` a block of one thread per env."""
+    ptr: object
+    h1: int
+    h2: int
+    nu_out: int
+    envs: int
+    threads: int
+    w2_rows: int
+    w2_cols: int
+    smem: int
+
+
+def _policy_smem_bytes(nx, nu, h1, h2, w2_rows, w2_cols):
+    """Dynamic shared memory of a policy launch, as ``PolicyLayout`` in
+    csrc/policy_mlp.cuh: W2 whole (a tile of all H1 rows and H2 columns) or
+    its two-tile ring of ``w2_rows`` by ``w2_cols``, W1, b1, then b2 and W3's
+    first nu columns of one chunk of ``w2_cols`` units of H2, b3[:nu], nmean,
+    ninv, then the obs, h1, the chunk's h2 and mu of the block's envs, each
+    region rounded up to 4 floats."""
+    r4 = lambda n: -(-n // 4) * 4
+    w2 = h1 * h2 if (w2_rows, w2_cols) == (h1, h2) else 2 * w2_rows * w2_cols
+    e = _POLICY_ENVS
+    parts = (w2, nx * h1, h1, w2_cols, w2_cols * nu, nu, nx, nx, nx * e, h1 * e,
+             w2_cols * e, nu * e)
+    return 4 * sum(r4(n) for n in parts)
+
+
+def _policy_w2_tile(nx, nu, h1, h2):
+    """W2's (rows, columns) a tile: (H1, H2) where the whole actor fits
+    beside the activations; else the largest ring tile that divides H1 and
+    fits with all H2 columns; else H2 runs chunk by chunk, in the fewest
+    chunks of equal width in eighths (the last one narrower) with which a
+    ring tile fits. None where nothing fits."""
+    fits = lambda rows, cols: _policy_smem_bytes(nx, nu, h1, h2, rows, cols) <= _POLICY_SMEM_MAX
+    if fits(h1, h2):
+        return h1, h2
+    for n_chunks in range(1, h2 // 8 + 1):
+        cols = 8 * -(-h2 // (8 * n_chunks))
+        for rows in _POLICY_W2_RING_ROWS:
+            if h1 % rows == 0 and fits(rows, cols):
+                return rows, cols
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -315,22 +371,35 @@ def _policy_mode(policy_params, policy_activation, draw_actions, actions, name):
     return True
 
 
-def _policy_launch(policy_params, nx, nu, B, dev, name):
-    """(buffer pointer, h1, h2, nu_out, threads) of a launch; in policy mode
-    one warp a block, and hidden widths the kernel computes."""
+def _policy_launch(policy_params, nx, nu, B, dev, name) -> PolicyLaunch:
+    """The :class:`PolicyLaunch` of a rollout launch. In policy mode: a block
+    of 256 threads for 32 envs, hidden widths in multiples of 8, and the
+    actor's shared memory within what a block may use (any H2 fits, with H1
+    up to 1264 at nx = 12 and 1544 at nx = 4); raises ValueError otherwise."""
     if policy_params is None:
-        return None, 0, 0, 0, block_size(B, dev)
+        return PolicyLaunch(None, 0, 0, 0, 0, block_size(B, dev), 0, 0, 0)
     pp = policy_params
     if pp.nx != nx or pp.nu_out < nu:
         raise ValueError(f'{name}: actor {pp.nx} -> {pp.nu_out} does not fit '
                          f'state dim {nx}, action dim {nu}')
-    if pp.h1 % _POLICY_UNIT_TILE or pp.h2 % _POLICY_UNIT_TILE or pp.h1 > _POLICY_MAX_H1:
-        raise ValueError(f'{name}: hidden widths {pp.h1}, {pp.h2} must be multiples of '
-                         f'{_POLICY_UNIT_TILE}, and the first at most {_POLICY_MAX_H1}')
+    if pp.h1 % 8 or pp.h2 % 8:
+        raise ValueError(f'{name}: hidden widths {pp.h1}, {pp.h2} must be multiples of 8')
+    tile = _policy_w2_tile(nx, nu, pp.h1, pp.h2)
+    if tile is None:
+        raise ValueError(f'{name}: actor {nx} -> {pp.h1} -> {pp.h2} needs '
+                         f'{_policy_smem_bytes(nx, nu, pp.h1, pp.h2, 8, 8)} bytes of shared '
+                         f'memory, more than the {_POLICY_SMEM_MAX} a block may use')
+    rows, cols = tile
     check_tensor(pp.buffer, 'policy_params.buffer',
                  (2 * nx + nx * pp.h1 + pp.h1 + pp.h1 * pp.h2 + pp.h2
                   + pp.h2 * pp.nu_out + pp.nu_out,), dev)
-    return pp.buffer.data_ptr(), pp.h1, pp.h2, pp.nu_out, _POLICY_THREADS
+    w2_offset = 4 * (2 * nx + nx * pp.h1 + pp.h1)
+    if rows != pp.h1 and (pp.buffer.data_ptr() + w2_offset) % 16:
+        raise ValueError(f'{name}: W2 must start 16-byte aligned in the packed buffer '
+                         'to stream')
+    return PolicyLaunch(pp.buffer.data_ptr(), pp.h1, pp.h2, pp.nu_out, _POLICY_ENVS,
+                        _POLICY_THREADS, rows, cols,
+                        _policy_smem_bytes(nx, nu, pp.h1, pp.h2, rows, cols))
 
 
 # ---------------------------------------------------------------------------
@@ -557,8 +626,7 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
         n_goal = int(x_goal.shape[0])
         check_tensor(x_goal, 'x_goal', (n_goal, 4), dev)
     flags = _flags(m)
-    ptr, h1, h2, nu_out, threads = _policy_launch(policy_params, 4, 1, B, dev,
-                                                  'cartpole_rollout')
+    pl = _policy_launch(policy_params, 4, 1, B, dev, 'cartpole_rollout')
     state = torch.empty_like(state0)
     ctrl_step, reward_sum, done_count, violation_count = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
@@ -566,11 +634,12 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
     err = lib.scg_cartpole_rollout(
         state0.data_ptr(), cfg.data_ptr(),
         actions.data_ptr() if not (m['draw_actions'] or policy) else None,
-        x_goal.data_ptr() if m['tracking'] else None, ptr,
+        x_goal.data_ptr() if m['tracking'] else None, pl.ptr,
         state.data_ptr(), ctrl_step.data_ptr(), reward_sum.data_ptr(),
         done_count.data_ptr(), violation_count.data_ptr(), B, int(n_steps),
-        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, h1, h2, nu_out,
-        float(clip_obs), flags, threads, torch.cuda.current_stream(dev).cuda_stream)
+        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, pl.h1, pl.h2, pl.nu_out,
+        float(clip_obs), flags, pl.threads, pl.envs, pl.w2_rows, pl.w2_cols,
+        pl.smem, torch.cuda.current_stream(dev).cuda_stream)
     cartpole_rollout.launches += 1
     cartpole_rollout.policy_launches += policy
     _build.check(lib, err, 'cartpole_rollout')
@@ -588,7 +657,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.scg_cartpole_rollout.argtypes = [
             p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
-            i, i, i, i, ctypes.c_float, i, i, p]
+            i, i, i, i, ctypes.c_float, i, i, i, i, i, i, p]
         lib.scg_cartpole_rollout.restype = ctypes.c_int
     return lib
 
@@ -787,7 +856,7 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
     if m['tracking']:
         n_goal = int(x_goal.shape[0])
         check_tensor(x_goal, 'x_goal', (n_goal, nx), dev)
-    ptr, h1, h2, nu_out, threads = _policy_launch(policy_params, nx, nu, B, dev, name)
+    pl = _policy_launch(policy_params, nx, nu, B, dev, name)
     state = torch.empty_like(state0)
     ctrl_step, reward_sum, done_count, violation_count = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
@@ -795,11 +864,12 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
     err = lib.scg_quad_rollout(
         quad_type, state0.data_ptr(), cfg.data_ptr(),
         actions.data_ptr() if not (m['draw_actions'] or policy) else None,
-        x_goal.data_ptr() if m['tracking'] else None, ptr,
+        x_goal.data_ptr() if m['tracking'] else None, pl.ptr,
         state.data_ptr(), ctrl_step.data_ptr(), reward_sum.data_ptr(),
         done_count.data_ptr(), violation_count.data_ptr(), B, int(n_steps),
-        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, h1, h2, nu_out,
-        float(clip_obs), _flags(m), threads, torch.cuda.current_stream(dev).cuda_stream)
+        int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, pl.h1, pl.h2, pl.nu_out,
+        float(clip_obs), _flags(m), pl.threads, pl.envs, pl.w2_rows, pl.w2_cols,
+        pl.smem, torch.cuda.current_stream(dev).cuda_stream)
     wrapper.launches += 1
     wrapper.policy_launches += policy
     _build.check(lib, err, name)
@@ -861,7 +931,7 @@ def _quad_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.scg_quad_rollout.argtypes = [
             i, p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
-            i, i, i, i, ctypes.c_float, i, i, p]
+            i, i, i, i, ctypes.c_float, i, i, i, i, i, i, p]
         lib.scg_quad_rollout.restype = ctypes.c_int
     return lib
 

@@ -42,9 +42,11 @@ def _interpret(monkeypatch):
 
 
 def _actor(key, nx, nu_out, hidden, out_scale):
-    """A PPO-initialized actor as numpy, its last layer scaled up so that the
-    actions move the state."""
-    actor = init_actor_critic(jax.random.PRNGKey(key), nx, nu_out, [hidden] * 2)['actor']
+    """A PPO-initialized actor as numpy (``hidden`` one width for both
+    layers, or a pair), its last layer scaled up so that the actions move the
+    state."""
+    widths = list(hidden) if isinstance(hidden, tuple) else [hidden] * 2
+    actor = init_actor_critic(jax.random.PRNGKey(key), nx, nu_out, widths)['actor']
     actor = [{k: np.asarray(v, np.float32) for k, v in layer.items()} for layer in actor]
     actor[-1]['w'] = actor[-1]['w'] * np.float32(out_scale)
     return actor
@@ -172,22 +174,85 @@ def test_pack_policy_params_layout_and_checks():
                              policy_params=small, policy_activation='elu')
 
 
+def _zero_actor(nx, h1, h2, nu_out):
+    return [{'w': np.zeros(s, np.float32), 'b': np.zeros(s[1], np.float32)}
+            for s in ((nx, h1), (h1, h2), (h2, nu_out))]
+
+
 @pytest.mark.parametrize('h1,h2,ok', [(64, 64, True), (256, 256, True), (384, 8, True),
-                                      (60, 64, False), (64, 12, False), (392, 64, False)])
+                                      (60, 64, False), (64, 12, False), (392, 64, True)])
 def test_policy_launch_takes_one_warp_and_widths_in_eighths(h1, h2, ok):
-    """A policy-mode launch runs one warp a block; the kernel computes hidden
-    units eight at a time, and one warp's first hidden layer must fit in the
-    48 KB of shared memory a launch gets without opting in."""
-    pp = trk.pack_policy_params([{'w': np.zeros(s, np.float32), 'b': np.zeros(s[1], np.float32)}
-                                 for s in ((4, h1), (h1, h2), (h2, 2))], 4, device='cpu')
+    """A policy-mode launch runs a block of 256 threads (eight warps) for 32
+    envs; hidden widths are multiples of 8, since the actor's register tiles
+    take units four and eight at a time. H1 above 384 is admitted now that
+    the activations' shared memory is opted in beyond 48 KB."""
+    pp = trk.pack_policy_params(_zero_actor(4, h1, h2, 2), 4, device='cpu')
     launch = functools.partial(trk._policy_launch, pp, 4, 1, 4096, torch.device('cpu'), 'k')
     if ok:
-        _ptr, got_h1, got_h2, nu_out, threads = launch()
-        assert (got_h1, got_h2, nu_out, threads) == (h1, h2, 2, 32)
-        assert h1 * threads * 4 <= 48 * 1024
+        pl = launch()
+        assert (pl.h1, pl.h2, pl.nu_out, pl.envs, pl.threads) == (h1, h2, 2, 32, 256)
+        assert pl.smem == trk._policy_smem_bytes(4, 1, h1, h2, pl.w2_rows,
+                                                 pl.w2_cols) <= 232448
     else:
         with pytest.raises(ValueError, match='multiples of 8'):
             launch()
+
+
+# Every committed and bench actor: PPO cartpole 4->64->64->1, PPO quads
+# 6/12->128->128->2/4, SAC 4/6/12->256->256->2/4/8, the bench rows 64 wide
+# (nu_out = nu) and the 3D bench row 256 wide (nu_out = 8); W2 stays whole up
+# to 128 wide and streams in 32-row tiles of all 256 columns at 256.
+@pytest.mark.parametrize('nx,nu,hidden,nu_out,w2_rows', [
+    (4, 1, 64, 1, 64), (6, 2, 64, 2, 64), (12, 4, 64, 4, 64),
+    (6, 2, 128, 2, 128), (12, 4, 128, 4, 128),
+    (4, 1, 256, 2, 32), (6, 2, 256, 4, 32), (12, 4, 256, 8, 32)])
+def test_policy_launch_geometry_of_committed_and_bench_actors(nx, nu, hidden, nu_out,
+                                                              w2_rows):
+    pp = trk.pack_policy_params(_zero_actor(nx, hidden, hidden, nu_out), nx, device='cpu')
+    pl = trk._policy_launch(pp, nx, nu, 4096, torch.device('cpu'), 'k')
+    assert (pl.envs, pl.threads, pl.w2_rows, pl.w2_cols) == (32, 256, w2_rows, hidden)
+    assert pl.smem <= 232448 - 512
+    # The layout of csrc/policy_mlp.cuh, region by region, rounded to 4 floats.
+    r4 = lambda n: -(-n // 4) * 4
+    w2 = hidden * hidden if w2_rows == hidden else 2 * w2_rows * hidden
+    floats = (r4(w2) + r4(nx * hidden) + 2 * hidden + r4(hidden * nu) + 4 + 2 * r4(nx)
+              + 32 * (nx + 2 * hidden + nu))
+    assert pl.smem == 4 * floats
+
+
+@pytest.mark.parametrize('nx,nu', [(4, 1), (6, 2), (12, 4)])
+def test_policy_launch_admits_every_width_of_the_one_warp_design(nx, nu):
+    """Every (H1, H2) in eighths with H1 <= 384 that the one-warp design took
+    fits the block's shared memory, whatever H2: above about H2 = 750 at
+    H1 = 384 the h2 of 32 envs no longer fits whole, and H2 runs in chunks of
+    equal width. Only an H1 far above 384 is refused."""
+    for h1 in range(8, 385, 8):
+        for h2 in (*range(8, 1025, 8), 1504, 2048, 4096, 8192):
+            tile = trk._policy_w2_tile(nx, nu, h1, h2)
+            assert tile is not None, (h1, h2)
+            rows, cols = tile
+            assert trk._policy_smem_bytes(nx, nu, h1, h2, rows, cols) <= 232448 - 512
+            assert cols % 8 == 0 and 0 < cols <= h2 and h1 % rows == 0, (h1, h2, tile)
+            assert (rows, cols) == (h1, h2) or rows in (8, 16, 32), (h1, h2, tile)
+    assert trk._policy_w2_tile(12, 4, 384, 752) == (8, 752)
+    assert trk._policy_w2_tile(12, 4, 384, 760) == (32, 384)     # two chunks
+    pp = trk.pack_policy_params(_zero_actor(12, 384, 4096, 8), 12, device='cpu')
+    pl = trk._policy_launch(pp, 12, 4, 4096, torch.device('cpu'), 'k')
+    assert pl.w2_cols < 4096 and pl.smem <= 232448 - 512
+    pp = trk.pack_policy_params(_zero_actor(12, 1272, 8, 8), 12, device='cpu')
+    with pytest.raises(ValueError, match='shared'):
+        trk._policy_launch(pp, 12, 4, 4096, torch.device('cpu'), 'k')
+
+
+def test_policy_block_constants_match_the_kernel_source():
+    """csrc/policy_mlp.cuh states the policy block's threads and envs by hand;
+    the launch gate must agree."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(trk.__file__), '..', 'csrc', 'policy_mlp.cuh')
+    consts = dict(re.findall(r'constexpr int (k\w+) = (\d+);', open(path).read()))
+    assert int(consts['kPolicyThreads']) == trk._POLICY_THREADS == 256
+    assert int(consts['kPolicyEnvs']) == trk._POLICY_ENVS == 32
 
 
 def test_partial_init_randomization_is_nominal_elsewhere():
@@ -249,9 +314,12 @@ def test_cuda_policy_kernels_match_plain_versions():
         cfg = _kernel_cfg(system, env, True)
         layout = trk._C if system == 'cartpole' else trk._Q
         cfg[layout['P_STD']:layout['P_STD'] + nu] = 0.5
-        s0 = env.func.reset_batch(torch.Generator(device=dev).manual_seed(0), 4096)[0].state
+        # A ragged batch: the last block's tile of 32 envs is partly filled.
+        s0 = env.func.reset_batch(torch.Generator(device=dev).manual_seed(0), 4096 + 13)[0].state
+        # 384 -> 1000 streams W2 and runs H2 in chunks, the last one narrower.
         for hidden, act, stoch, squash in ((64, 'tanh', True, False),
-                                           (256, 'relu', False, True)):
+                                           (256, 'relu', False, True),
+                                           ((384, 1000), 'relu', True, True)):
             pp = trk.pack_policy_params(_actor(3, nx, 2 * nu, hidden, 30.0), nx, device=dev)
             kw = dict(draw_actions=False, constrained=True, randomized_reset=True,
                       policy_params=pp, policy_stochastic=stoch, policy_squash=squash,

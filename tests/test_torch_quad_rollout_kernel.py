@@ -185,11 +185,11 @@ def test_cfg_gates_the_physics_quad_type_and_dense_costs(attr, value):
 
 def test_kernel_source_keeps_the_cfg_layout_and_flags():
     """csrc/quad_kernels.cu states the offsets of ``_Q`` and the mode bits of
-    ``_FLAGS`` by hand (the policy mode's bits in csrc/policy_mlp.cuh); they
-    must agree."""
+    ``_FLAGS`` by hand (the mode bits in csrc/rollout_modes.cuh, which K4 and
+    K5 share); they must agree."""
     csrc = os.path.join(os.path.dirname(trk.__file__), '..', 'csrc')
     source = ''.join(open(os.path.join(csrc, f)).read()
-                     for f in ('quad_kernels.cu', 'policy_mlp.cuh'))
+                     for f in ('quad_kernels.cu', 'rollout_modes.cuh'))
     enums = dict((k, int(v)) for k, v in re.findall(r'\b([A-Z][A-Z0-9_]*) = (\d+)', source))
     for name, off in trk._Q.items():
         assert enums[name] == off, name
