@@ -11,9 +11,17 @@ Phases, one JSON line each:
   3. k1, k2, k3  the per-step physics kernels (cartpole_advance, quad2d_advance,
                quad3d_advance) against their plain versions at B=4096;
   4. k4, k5    the whole-rollout kernels (cartpole_rollout; quad2d_rollout and
-               quad3d_rollout) against their plain versions at B=4096 in three
-               modes: replay, tracking with quadratic cost, constrained with
-               white action noise and Philox draws;
+               quad3d_rollout) against their plain versions, bit for bit, at
+               B=4096 in three modes (replay, tracking with quadratic cost,
+               constrained with white action noise and Philox draws), and
+               constrained at B=4109, at n_substeps 7 and 4 (the general path),
+               in 3D with one lane an env, on a hover replay and with angles
+               past sinf's fast range (the step's library recompute);
+     chain     csrc/exact_math.cuh against the CUDA math library, the SASS of
+               the substep loops, ns a substep on random and hover rows and
+               at B=65536, the chain cycles of a substep and the SM clock
+               (kernel_first_check --chain); the open-loop rows of the kernels
+               line gain chain_bound_ms, lanes_per_env and these times;
   5. main_path make(..., device='cuda') -> measure_batched (per-step path, K1,
                K2, K3) plain and constrained, and measure_rollout_kernel
                (whole-rollout path, K4, K5) on the reference benchmark's rows,
@@ -103,6 +111,7 @@ MODELS = [(algo, system) for algo in ('ppo', 'sac') for system in MODEL_SYSTEM]
 NX = {'cartpole': 4, 'quadrotor': 6, 'quadrotor_3D': 12}
 NU = {'cartpole': 1, 'quadrotor': 2, 'quadrotor_3D': 4}
 N_OOB = {'quadrotor': 3, 'quadrotor_3D': 6}
+ANGLE_DIM = {'cartpole': 2, 'quadrotor': 4, 'quadrotor_3D': 7}
 QUAD_TYPE = {'quadrotor': 2, 'quadrotor_3D': 3}
 
 SRC = 'safe_control_gym_tpu_torch/csrc/'
@@ -214,8 +223,18 @@ def _plain_rollout(system):
 
 
 def _rollout_cases(system, dev, T):
-    """(name, state0, cfg, kwargs) of the three checked modes of ``system``."""
+    """(name, state0, cfg, kwargs) of the checked open-loop cases of
+    ``system``: three modes at B (replay, tracking with quadratic cost,
+    constrained with noise and Philox draws); constrained draws at B_RAGGED
+    (a last warp of 8 envs and a last block partly filled), at n_substeps 7
+    and 4 (the kernels' general path; the others run the 20 compiled in) and,
+    in 3D, at a batch large enough for one lane an env; a hover replay (the
+    angles exactly 0: zero numerators in 3D's quotients); and envs started at
+    an angle past sinf's fast range (the step recomputed with the library's
+    functions)."""
     from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.experiments.kernel_first_check import (hover_actions,
+                                                                            hover_case)
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     from safe_control_gym_tpu_torch.utils.registration import make
     g = torch.Generator(device=dev).manual_seed(1)
@@ -239,6 +258,21 @@ def _rollout_cases(system, dev, T):
                   randomized_reset=env.RANDOMIZED_INIT, **mode,
                   **rk.rollout_task_kwargs(env))
         cases.append((name, states.state.contiguous(), cfg, kw))
+    s0, cfg, kw = cases[-1][1:]
+    reset = lambda n: env.func.reset_batch(g, n)[0].state.contiguous()
+    cases.append(('ragged_batch_constrained', reset(B_RAGGED), cfg, kw))
+    for n_sub in (7, 4):
+        cases.append((f'substeps_{n_sub}_constrained', s0, cfg,
+                      dict(kw, n_substeps=n_sub, dt=env.CTRL_TIMESTEP / n_sub)))
+    if system == 'quadrotor_3D':
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        cases.append(('one_lane_an_env_constrained', reset(32 * 4 * n_sm), cfg, kw))
+    hover, raw, cfg_h, kw_h = hover_case(system, dev)
+    cases.append(('hover', hover.expand(B, -1).contiguous(), cfg_h,
+                  dict(kw_h, actions=hover_actions(system, raw, T, B))))
+    special = s0.clone()
+    special[::97, ANGLE_DIM[system]] = 2.0e5
+    cases.append(('angle_past_sinf_fast_range', special, cfg, kw))
     return cases
 
 
@@ -282,10 +316,12 @@ def rollout_bytes(system, kw, T, batch=B):
     return n
 
 
-def check_rollout(system, dev):
-    """K4 or K5 against its plain version in three modes, timed."""
+def check_rollout(system, dev, length=None):
+    """K4 or K5 against its plain version on every case of ``_rollout_cases``,
+    bit for bit (state and reward sums equal, no count differing), timed on
+    the constrained case. ``length`` overrides T."""
     from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
-    meta, T = ROLLOUT[system], T_CHECK[system]
+    meta, T = ROLLOUT[system], length or T_CHECK[system]
     kernel, plain = _kernel(system)[1], _plain_rollout(system)
     worst = 0.0
     row = None
@@ -299,28 +335,25 @@ def check_rollout(system, dev):
         plain_ms = e0.elapsed_time(e1)
         state_err = float((k['state'] - p['state']).abs().max())
         rew_err = float((k['reward_sum'] - p['reward_sum']).abs().max())
-        rew_tol = float((1e-4 + 1e-4 * p['reward_sum'].abs()).min())
         flips = {key: int((k[key] != p[key]).sum())
                  for key in ('done_count', 'ctrl_step', 'violation_count')}
-        ok = (state_err <= 1e-4 and bool(((k['reward_sum'] - p['reward_sum']).abs()
-                                           <= 1e-4 + 1e-4 * p['reward_sum'].abs()).all())
-              and not any(flips.values()))
-        emit(meta['id'].lower(), kernel=meta['name'], case=name, T=T, B=B,
-             state_err=state_err, reward_err=rew_err, reward_tol_min=rew_tol,
+        ok = state_err == 0.0 and rew_err == 0.0 and not any(flips.values())
+        emit(meta['id'].lower(), kernel=meta['name'], case=name, T=T, B=s0.shape[0],
+             n_substeps=kw['n_substeps'], state_err=state_err, reward_err=rew_err,
              envs_with_other_counts=flips, ok=ok,
              mean_done_count=float(k['done_count'].mean()),
              mean_violation_count=float(k['violation_count'].mean()))
         if not ok:
             raise RuntimeError(
                 f'{meta["name"]} disagrees with its plain version on {name}: state err '
-                f'{state_err} (tol 1e-4), reward err {rew_err} (tol 1e-4 + 1e-4|r|), envs '
-                f'whose counts differ {flips} (must be none: both draw the same Philox '
-                'numbers and round the same float ops)')
+                f'{state_err}, reward err {rew_err} (both must be 0.0), envs whose counts '
+                f'differ {flips} (must be none: both draw the same Philox numbers and '
+                'round the same float ops)')
         worst = max(worst, state_err, rew_err)
         if name == 'constrained_noise_draws':
             ms = time_ms(lambda: kernel(s0, cfg, 8, T, **kw), 5)
-            warp_s0 = s0[:32].contiguous()
-            one_warp_ms = time_ms(lambda: kernel(warp_s0, cfg, 8, T, **kw), 5)
+            block_s0 = s0[:32].contiguous()
+            one_block_ms = time_ms(lambda: kernel(block_s0, cfg, 8, T, **kw), 5)
             done_total = float(kernel(s0, cfg, 8, T, **kw)['done_count'].sum())
             b_ms, b_by = bound_ms(rollout_bytes(system, kw, T),
                                   rollout_ops(system, kw, T, done_total))
@@ -328,11 +361,37 @@ def check_rollout(system, dev):
                        replaces=meta['replaces'], ms=ms, kernel_ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
                        library_note='no single PyTorch call computes a T-step env rollout',
-                       one_warp_ms=one_warp_ms,
+                       one_block_ms=one_block_ms,
                        shape=f'B={B} T={T} constrained, noise and Philox draws',
                        id=meta['id'])
     row['max_abs_err'] = worst
     return row
+
+
+def chain(dev):
+    """The open loop's serial chain (``kernel_first_check --chain``): the
+    exact-math check (every result of csrc/exact_math.cuh equal to the
+    library's), ns a substep on random and hover rows at B, one block and
+    B=65536, the SASS of the substep loops, the chain cycles of one substep
+    (the per-step kernels' loops) and the SM clock under load."""
+    from safe_control_gym_tpu_torch.experiments import kernel_first_check as kfc
+    from safe_control_gym_tpu_torch.ops import _build
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    exact = rk.exact_math_check(dev)
+    emit('chain', exact_math=exact)
+    if any(differ for _, differ in exact.values()) or not all(n for n, _ in exact.values()):
+        raise RuntimeError(f'csrc/exact_math.cuh differs from the CUDA math library: {exact}')
+    clock = kfc.sm_clock_ghz()
+    sass_rows = kfc.chain_sass(_build.build_all())
+    for system, kernels in sass_rows.items():
+        for fname, entry in kernels.items():
+            if 'substep_loop' in entry:
+                emit('chain', system=system, kernel=fname, substep_loop=entry['substep_loop'])
+    times = kfc.chain_times(dev)
+    for row in times:
+        emit('chain', **row)
+    return dict(clock_ghz=clock, cycles=kfc.reference_chain_cycles(sass_rows),
+                times={(r['system'], r['case']): r for r in times})
 
 
 # The whole-rollout rows of the reference benchmark (bench.py): plain and
@@ -753,6 +812,7 @@ def main():
         sys.exit(2)
     from safe_control_gym_tpu_torch.ops import _build
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    from safe_control_gym_tpu_torch.ops._launch import open_loop_launch
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -766,6 +826,7 @@ def main():
          libraries=sorted(libs))
     physics = {s: check_physics(s, dev) for s in SYSTEMS}
     rollout = {s: check_rollout(s, dev) for s in SYSTEMS}
+    serial = chain(dev)
     launches, rows = main_path(dev, smi)
     welch(dev)
     policy = {s: check_policy(s, dev) for s in SYSTEMS}
@@ -794,6 +855,21 @@ def main():
             rollout_ops(system, kw, T_ROLLOUT,
                         main_row['mean_done_count'] * B))[0]
         row['main_path_shape'] = f'B={B} T={T_ROLLOUT} constrained'
+        # The chain bound: T x n_substeps x one substep's loop-carried chain
+        # (the per-step kernel's loop) at the SM clock measured in this run.
+        cycles = serial['cycles'][system]
+        row['chain_cycles_per_substep'] = cycles
+        row['sm_clock_ghz'] = serial['clock_ghz']
+        row['chain_bound_ms'] = cycles * T_ROLLOUT * N_SUB / (serial['clock_ghz'] * 1e6)
+        row['share_of_chain_bound'] = row['chain_bound_ms'] / row['main_path_ms']
+        row['lanes_per_env'] = open_loop_launch(B, dev, team=system == 'quadrotor_3D')[1]
+        times = serial['times']
+        for case in ('random', 'hover', 'hover_tilted'):
+            if (system, case) in times:
+                row[f'{case}_ns_per_substep'] = times[system, case]['ns_per_substep']
+        big = times[system, 'random_big_batch']
+        row['big_batch_ms'] = big['ms']
+        row['big_batch_shape'] = f'B={big["B"]} T={big["T"]} constrained (reported, not gated)'
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     ordered = [physics['cartpole'], physics['quadrotor'], physics['quadrotor_3D'],

@@ -15,17 +15,33 @@
 // over steps; nothing is carried between blocks). K1 moves 44 bytes per
 // env and is bound by its launch at the batch sizes of the env step; K4
 // reads its inputs once and writes its outputs once, and at B=4096 it is
-// bound by the latency of the dependent chain (T x n_substeps substeps of
-// sin, cos and a reciprocal), not by FLOP/s or bytes. In policy mode the
-// actor's float32 products dominate each step, and a separate kernel,
-// cartpole_policy_rollout_kernel, runs them with the whole block
-// (policy_mlp.cuh); both kernels share the per-env step, cartpole_step.
+// bound by the dependent chain of one env (T x n_substeps substeps of
+// sin/cos, a reciprocal and a dozen multiplies and adds, each needing the
+// last), not by FLOP/s or bytes.
+//
+// K4's open loop, cartpole_rollout_kernel<N>. The chain is coupled (the
+// angular acceleration needs sin and cos of the angle, and the reciprocal of
+// a term in cos^2), so the work is to keep everything else off it. With the
+// library's sinf, cosf and reciprocal each ending in a branch to its slow
+// path, the warp stalled at every one and a substep took about 390 cycles
+// against a chain of about 140 (kernel_first_check --chain). The design:
+// exact_math.cuh's branch-free copies (one range reduction for sin and cos,
+// the step recomputed with the library's functions where an operand was
+// special); N = 20 substeps compiled in, run in unrolled chunks
+// (rollout_modes.cuh), N = 0 for other counts; the next step's draw of rows
+// 0-3 in the same basic block as the substeps, so its Philox rounds fill
+// the issue slots the chain leaves idle; the reset rows drawn only for an
+// env that is done. In policy mode the actor's float32 products dominate
+// each step, and a separate kernel, cartpole_policy_rollout_kernel, runs
+// them with the whole block (policy_mlp.cuh) and the library's substeps; both
+// kernels share the action, reward, done and reset code (cartpole_step).
 //
 // Numerics. Every expression follows the plain PyTorch version
 // (ops/physics_kernels.py, ops/rollout_kernels.py) operation for
 // operation, and the file is built with --fmad=false and without fast-math
 // intrinsics (ops/_build.py), so each float op rounds as PyTorch's own
-// elementwise op does.
+// elementwise op does; exact_math.cuh's copies give the library's results
+// bit for bit.
 //
 // Launch shape. For K1 and K4's open loop the wrappers pick the block size so
 // that the grid covers every SM (32 threads a block at B=4096 on 132 SMs):
@@ -43,6 +59,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "exact_math.cuh"
 #include "philox.cuh"
 #include "policy_mlp.cuh"
 #include "rollout_modes.cuh"
@@ -54,8 +71,14 @@ using scg::F_POLICY_RELU;
 using scg::kTwoPi;
 using scg::Modes;
 using scg::modes;
+using scg::rcp_exact;
+using scg::sincos_exact;
 using scg::standard_normal;
 using scg::uniform4;
+
+// The substep count the open loop compiles in (ops/rollout_kernels.py
+// SPECIALISED_SUBSTEPS); other counts loop over the runtime count.
+constexpr int kSpecialisedSubsteps = 20;
 
 constexpr float kFourThirds = 1.33333333333333333f;
 constexpr float kPi = 3.141592653589793f;
@@ -99,6 +122,48 @@ __device__ __forceinline__ void cartpole_substeps(
     x = x + dt * xd;
     th = th + dt * thd;
   }
+}
+
+// cartpole_substeps without the tab force, every float op as there, but
+// with exact_math.cuh's branch-free sin/cos and reciprocal: N > 0 substeps
+// compiled in (in unrolled chunks, rollout_modes.cuh), or n if N == 0. Returns false where an
+// operand was special; the caller then recomputes the step with
+// cartpole_substeps.
+template <int N>
+__device__ __forceinline__ bool cartpole_substeps_exact(float& x, float& xd, float& th,
+                                                        float& thd, float force, float m,
+                                                        float M, float L, float g, int n,
+                                                        float dt) {
+  const float Mm = m + M;
+  const float ml = m * L;
+  const float a11 = Mm;
+  const float a22 = kFourThirds * m * L * L;
+  const float f1 = force + 0.0f;
+  const float mgL = m * g * L;
+  const float fxL = 0.0f * L;
+  const float fzL = 0.0f * L;
+  const float a11a22 = a11 * a22;
+  bool ok = true;
+  auto substep = [&]() {
+    float sin_t, cos_t, inv_det;
+    ok &= sincos_exact(th, sin_t, cos_t);
+    const float a12 = ml * cos_t;
+    const float b1 = f1 + ml * thd * thd * sin_t;
+    const float b2 = mgL * sin_t + fxL * cos_t - fzL * sin_t;
+    ok &= rcp_exact(a11a22 - a12 * a12, inv_det);
+    const float x_dd = (a22 * b1 - a12 * b2) * inv_det;
+    const float th_dd = (a11 * b2 - a12 * b1) * inv_det;
+    xd = xd + dt * x_dd;
+    thd = thd + dt * th_dd;
+    x = x + dt * xd;
+    th = th + dt * thd;
+  };
+  if constexpr (N > 0) {
+    scg::chunked_substeps<N>(substep);
+  } else {
+    for (int i = 0; i < n; ++i) substep();
+  }
+  return ok;
 }
 
 __global__ void cartpole_advance_kernel(
@@ -151,22 +216,23 @@ __device__ __forceinline__ void store_env(const CartEnv& e, int b, float* __rest
   viol_out[b] = (float)e.viol_count;
 }
 
-// The rest of one control step after the raw action, for one env: physical
-// -> noisy -> clipped action, the substeps, reward, done, violations and the
-// auto-reset. rnd holds the step's eight random rows.
-__device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[CFG_LEN],
-                                              float raw, const float (&rnd)[8],
-                                              const float* __restrict__ x_goal,
-                                              int n_goal, int n_substeps, float dt,
-                                              CartEnv& e) {
+// The action pipeline of one step: physical -> noisy (white noise from rows
+// 1-2) -> clipped force.
+__device__ __forceinline__ void cartpole_action(const Modes& m, const float (&c)[CFG_LEN],
+                                                float raw, const float* rnd, float& noisy,
+                                                float& force) {
   const float phys = raw * c[ACT_SCALE];
-  float noisy = phys;
+  noisy = phys;
   if (m.action_noise) noisy = phys + c[NOISE_STD] * standard_normal(rnd[1], rnd[2]);
-  const float force = fminf(fmaxf(noisy, c[PHYS_LO]), c[PHYS_HI]);
+  force = fminf(fmaxf(noisy, c[PHYS_LO]), c[PHYS_HI]);
+}
 
-  cartpole_substeps(e.x, e.xd, e.th, e.thd, force, 0.0f, 0.0f, c[POLE_MASS],
-                    c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt);
-
+// After the substeps: the reward (into rew), done before the reset (the
+// return value) and the violation count.
+__device__ __forceinline__ bool cartpole_outcome(const Modes& m, const float (&c)[CFG_LEN],
+                                                 float noisy, float force,
+                                                 const float* __restrict__ x_goal,
+                                                 int n_goal, CartEnv& e, float& rew) {
   // Goal: constant, or this env's own waypoint X_GOAL[step + 1]
   // (X_GOAL[step] under the quadratic cost).
   float g0 = c[GOAL + 0], g1 = c[GOAL + 1], g2 = c[GOAL + 2], g3 = c[GOAL + 3];
@@ -178,7 +244,6 @@ __device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[C
     g3 = x_goal[4 * idx + 3];
   }
   const float e0 = e.x - g0, e1 = e.xd - g1, e3 = e.thd - g3;
-  float rew;
   if (m.quadratic) {
     // Unwrapped angle, clipped action against U_GOAL, never exponential.
     const float e2q = e.th - g2;
@@ -204,8 +269,7 @@ __device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[C
   if (m.done_on_oob) {
     done = done || fabsf(e.x) > c[X_THRESH] || fabsf(e.th) > c[TH_THRESH];
   }
-  const int new_step = e.step + 1;
-  done = done || (float)new_step >= c[MAX_STEPS];
+  done = done || (float)(e.step + 1) >= c[MAX_STEPS];
 
   // Default state box and input box, on the noisy pre-clip action.
   if (m.constrained) {
@@ -214,8 +278,14 @@ __device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[C
         || noisy > c[PHYS_HI] || noisy < c[PHYS_LO];
     e.viol_count += viol;
   }
+  return done;
+}
 
-  // Auto-reset: fresh states are drawn every step, selected where done.
+// The auto-reset of a done env (fresh state from rows 4-7, or INIT_LO) and
+// the counters.
+__device__ __forceinline__ void cartpole_finish(const Modes& m, const float (&c)[CFG_LEN],
+                                                bool done, const float* rnd, float rew,
+                                                CartEnv& e) {
   if (done) {
     if (m.randomized_reset) {
       e.x = c[INIT_LO + 0] + rnd[4] * (c[INIT_HI + 0] - c[INIT_LO + 0]);
@@ -229,12 +299,35 @@ __device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[C
       e.thd = c[INIT_LO + 3];
     }
   }
-  e.step = done ? 0 : new_step;
+  e.step = done ? 0 : e.step + 1;
   e.reward_sum += rew;
   e.done_count += done;
 }
 
-// The open loop: one thread per env, actions drawn or replayed.
+// The rest of one control step after the raw action, for one env (policy
+// mode): physical -> noisy -> clipped action, the substeps, reward, done,
+// violations and the auto-reset. rnd holds the step's eight random rows.
+__device__ __forceinline__ void cartpole_step(const Modes& m, const float (&c)[CFG_LEN],
+                                              float raw, const float (&rnd)[8],
+                                              const float* __restrict__ x_goal,
+                                              int n_goal, int n_substeps, float dt,
+                                              CartEnv& e) {
+  float noisy, force, rew;
+  cartpole_action(m, c, raw, rnd, noisy, force);
+  cartpole_substeps(e.x, e.xd, e.th, e.thd, force, 0.0f, 0.0f, c[POLE_MASS],
+                    c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt);
+  const bool done = cartpole_outcome(m, c, noisy, force, x_goal, n_goal, e, rew);
+  cartpole_finish(m, c, done, rnd, rew, e);
+}
+
+// The open loop: one thread per env, actions drawn or replayed; N substeps
+// compiled in, or n_substeps if N == 0. A step's substeps run
+// cartpole_substeps_exact (the library's cartpole_substeps where it reports a
+// special operand) in one basic block, together with the next step's draw of
+// rows 0-3, whose Philox rounds fill the issue slots the substeps' chain
+// leaves idle. The reset rows 4-7 are drawn only for an env that is done
+// (the plain version draws them every step and selects: the same words).
+template <int N>
 __global__ void cartpole_rollout_kernel(
     const float* __restrict__ state0, const float* __restrict__ cfg_g,
     const float* __restrict__ actions, const float* __restrict__ x_goal,
@@ -250,13 +343,27 @@ __global__ void cartpole_rollout_kernel(
   const Modes m = modes(flags);
   CartEnv e = load_env(state0, b);
 
+  float rnd[8];
+  uniform4(seed, b, 0, 0u, rnd);
   for (int t = 0; t < T; ++t) {
-    float rnd[8];
-    if (m.draw_actions || m.action_noise) uniform4(seed, b, t, 0u, rnd);
-    if (m.randomized_reset) uniform4(seed, b, t, 1u, rnd + 4);
     const float raw = m.draw_actions ? c[ACT_LO] + rnd[0] * (c[ACT_HI] - c[ACT_LO])
                                      : actions[(size_t)t * B + b];
-    cartpole_step(m, c, raw, rnd, x_goal, n_goal, n_substeps, dt, e);
+    float noisy, force, rew;
+    cartpole_action(m, c, raw, rnd, noisy, force);
+    float next[4];
+    uniform4(seed, b, t + 1, 0u, next);
+    const CartEnv start = e;
+    if (!cartpole_substeps_exact<N>(e.x, e.xd, e.th, e.thd, force, c[POLE_MASS],
+                                    c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt)) {
+      e = start;
+      cartpole_substeps(e.x, e.xd, e.th, e.thd, force, 0.0f, 0.0f, c[POLE_MASS],
+                        c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt);
+    }
+    const bool done = cartpole_outcome(m, c, noisy, force, x_goal, n_goal, e, rew);
+    if (done && m.randomized_reset) uniform4(seed, b, t, 1u, rnd + 4);
+    cartpole_finish(m, c, done, rnd, rew, e);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rnd[k] = next[k];
   }
   store_env(e, b, state_out, step_out, reward_out, done_out, viol_out);
 }
@@ -356,8 +463,9 @@ int scg_cartpole_rollout(const void* state0, const void* cfg,
                          int smem, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (!(flags & F_POLICY)) {
-    cartpole_rollout_kernel<<<(B + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
+    auto kernel = n_substeps == kSpecialisedSubsteps
+        ? cartpole_rollout_kernel<kSpecialisedSubsteps> : cartpole_rollout_kernel<0>;
+    kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (const float*)state0, (const float*)cfg, (const float*)actions,
         (const float*)x_goal, (float*)state_out, (float*)step_out, (float*)reward_out,
         (float*)done_out, (float*)viol_out, B, T, n_substeps, dt, seed, n_goal, flags);

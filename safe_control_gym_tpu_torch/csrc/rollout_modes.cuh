@@ -1,9 +1,34 @@
 // The mode bits of the rollout kernels, K4 (cartpole_kernels.cu) and K5
-// (quad_kernels.cu), and their decoded form, read once per launch.
+// (quad_kernels.cu), and their decoded form, read once per launch; and how
+// their open loop unrolls its compiled-in substeps.
 
 #pragma once
 
+// The open loop runs its compiled-in substeps as a loop over chunks of
+// kSubstepChunk, each unrolled into one basic block: a chunk's substeps
+// overlap, and the step's code stays small enough for the SM's instruction
+// cache, which the fully unrolled step (2,000-4,600 instructions) overflows.
+// kernel_first_check --chain --chunks builds and times other values
+// (-DSCG_SUBSTEP_CHUNK=k).
+#ifndef SCG_SUBSTEP_CHUNK
+#define SCG_SUBSTEP_CHUNK 5
+#endif
+
 namespace scg {
+
+constexpr int kSubstepChunk = SCG_SUBSTEP_CHUNK;
+
+// The compile-time loop of N > 0 substeps in chunks: body() N times.
+template <int N, typename Body>
+__device__ __forceinline__ void chunked_substeps(Body&& body) {
+  constexpr int C = kSubstepChunk < N ? kSubstepChunk : N;
+  static_assert(N % C == 0, "the substep count must be a multiple of the chunk");
+#pragma unroll 1
+  for (int c0 = 0; c0 < N; c0 += C) {
+#pragma unroll
+    for (int i = 0; i < C; ++i) body();
+  }
+}
 
 // Mode bits of the kernels' flags argument (ops/rollout_kernels.py _FLAGS).
 enum {

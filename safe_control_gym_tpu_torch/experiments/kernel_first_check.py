@@ -5,25 +5,51 @@
 Builds ``csrc/cartpole_kernels.cu`` and ``csrc/quad_kernels.cu`` once with
 ``-Xptxas -v`` and prints each kernel's registers, stack and spills; builds
 every library as the port does; runs K2 and K3 once at B=4096 against their
-plain versions; runs K5 (2D and 3D, plain and constrained benchmark configs)
-for 60 steps against its plain version and times it at T=4096 with CUDA
-events; checks that K4 still agrees with its plain version; and runs the
-policy-mode phases of ``chip_smoke.py`` (``check_policy``: K4 and K5 with the
-committed actors against their plain versions) at T=40. Run it from the
-root of a checkout. It prints what it finds of the open-loop kernels and
-raises where the card or the build fails; the policy mode is held to
-``chip_smoke.py``'s tolerances, and raises there.
+plain versions; holds ``csrc/exact_math.cuh`` to the CUDA math library
+(``rollout_kernels.exact_math_check``); and runs ``chip_smoke.py``'s open-loop
+phases (``check_rollout``: every K4 and K5 case, bit for bit) at T=60 and its
+policy-mode phases (``check_policy``: K4 and K5 with the committed actors) at
+T=40 against their plain versions. Run it from the root of a checkout. It
+raises where the card, the build or a check fails.
 
 ``--floor`` times, per system at B=4096, T=2048, the policy kernel with an
 8-wide zero actor (stochastic, so the exploration draws run) beside the
 open-loop kernel replaying actions: the first is the policy kernel's step
 without the actor's products, the second the open loop's serial chain.
+
+``--chain`` measures the open loop's serial chain, per system, and skips the
+checks above:
+
+    python -m safe_control_gym_tpu_torch.experiments.kernel_first_check --chain \
+        [--root OTHER_CHECKOUT]
+
+* times (``chain_times``): ns a substep at B=4096, T=4096 on the main path's
+  constrained rows (random actions, noise and Philox draws) and on a hover
+  replay (the nominal state, every motor at the hover command, no goal, so
+  the angles stay exactly 0; the quads also tilted by 0.01 rad, where they
+  stay at 0.01), each for the full batch and for one block of 32 envs; and
+  the random rows at B=65536, T=4096. ``--root`` times another checkout's
+  kernels with the same code in a subprocess, before and after this one's
+  (other, this, this, other): the same card, the same call; ``--chunks
+  20,5,4`` times this checkout built with each substep chunk
+  (``rollout_modes.cuh``, ``-DSCG_SUBSTEP_CHUNK``) in turns;
+* the SASS (``chain_sass``, ``experiments/sass.py``): for every open-loop
+  rollout kernel and per-step physics kernel, the loop that holds the
+  substeps, its instructions (all and on the fast path), its branches to the
+  slow paths of divide, reciprocal, ``sinf``/``cosf`` and ``sqrtf``, and its
+  dependent chain in cycles (a latency table's estimate);
+* the chain bound (``chain_bound_ms``): T x n_substeps x the loop-carried
+  chain of one substep of the per-step kernel (K1, K2, K3: one thread, one
+  substep an iteration) at the SM clock measured here, the least time any
+  design can take for one env's rollout.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,6 +65,261 @@ from safe_control_gym_tpu_torch.utils.device import require_cuda
 
 B = 4096
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CHAIN_SYSTEMS = ('cartpole', 'quadrotor', 'quadrotor_3D')
+CHAIN_T = 4096
+CHAIN_BIG_B = 65536
+CHAIN_BLOCK_ENVS = 32
+# The library and kernels of each system: the open-loop rollout kernel (all
+# its instantiations) and the per-step kernel, whose loop is one substep.
+CHAIN_KERNELS = {
+    'cartpole': ('cartpole_kernels', 'cartpole_rollout_kernel', 'cartpole_advance_kernel'),
+    'quadrotor': ('quad_kernels', 'quad_rollout_kernelILi2E', 'quad2d_advance_kernel'),
+    'quadrotor_3D': ('quad_kernels', 'quad_rollout_kernelILi3E', 'quad3d_advance_kernel'),
+}
+
+
+def _time_ms(fn, reps=3):
+    """Best device time of ``reps`` calls after a warm-up, CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    best = float('inf')
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def sm_clock_ghz():
+    """The SM clock while busy: ``torch.cuda._sleep`` spins a given number
+    of cycles; cycles over its event time."""
+    cycles = 200_000_000
+    return cycles / (_time_ms(lambda: torch.cuda._sleep(cycles), 2) * 1e6)
+
+
+def hover_case(system, device='cuda', tilt=0.0):
+    """(state, raw action, cfg, kwargs) of a hover replay of ``system``'s
+    whole-rollout kernel: the nominal state (the cartpole upright at rest),
+    the raw action that commands the hover thrust on every motor (0 on the
+    cartpole), no noise, no goal, and a time-limit reset back to the same
+    state. ``tilt`` sets the quads' angles, which then stay put: equal motors
+    give no torque. Without a tilt the angles stay exactly 0. Replay it with
+    ``actions = raw`` repeated over (T, B)."""
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
+    env = _make(system, False, device=device)
+    layout = _kernel(system)[2]
+    cfg = _kernel_cfg(system, env, False)
+    if system == 'cartpole':
+        hover = torch.zeros(4, device=device)
+        raw = torch.zeros(1, device=device)
+    else:
+        hover = torch.as_tensor(env._nominal_init_state(), dtype=torch.float32,
+                                device=device)
+        hover[[4] if system == 'quadrotor' else [6, 7, 8]] = tilt
+        u_goal = cfg[layout['U_GOAL']:layout['U_GOAL'] + env.action_dim]
+        raw = (u_goal - cfg[layout['DEN_B']]) / cfg[layout['DEN_A']]
+    nx = hover.numel()
+    cfg[layout['TOL_SQ']] = 0.0
+    cfg[layout['INIT_LO']:layout['INIT_LO'] + nx] = hover
+    cfg[layout['INIT_HI']:layout['INIT_HI'] + nx] = hover
+    kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP, draw_actions=False,
+              constrained=False, action_noise=False, randomized_reset=False)
+    env.close()
+    return hover, raw, cfg, kw
+
+
+def hover_actions(system, raw, T, B):
+    """The (T, B[, nu]) replay of the hover command ``raw``."""
+    actions = raw.expand(T, B, raw.numel()).contiguous()
+    return actions[..., 0].contiguous() if system == 'cartpole' else actions
+
+
+def chain_times(dev, B=B, T=CHAIN_T, big_B=CHAIN_BIG_B):
+    """[{system, case, B, T, ms, ns_per_substep}] of the open-loop kernels
+    (see the module docstring). Uses only the wrappers' public arguments, so
+    it times another checkout's kernels as well."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    rows = []
+    for system in CHAIN_SYSTEMS:
+        kernel = bs._kernel(system)[1]
+        env = _make(system, True, device=dev)
+        cfg = _kernel_cfg(system, env, True)
+        n_sub = env.PYB_STEPS_PER_CTRL
+        random = dict(n_substeps=n_sub, dt=env.PYB_TIMESTEP, constrained=True,
+                      randomized_reset=bool(env.RANDOMIZED_INIT))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cases = []
+        s0 = env.func.reset_batch(gen, B)[0].state.contiguous()
+        cases.append(('random', s0, cfg, random))
+        cases.append(('random_one_block', s0[:CHAIN_BLOCK_ENVS].contiguous(), cfg, random))
+        for name, tilt in (('hover', 0.0), ('hover_tilted', 0.01)):
+            if system == 'cartpole' and tilt:
+                continue
+            hover, raw, cfg_h, kw = hover_case(system, dev, tilt)
+            for suffix, n in (('', B), ('_one_block', CHAIN_BLOCK_ENVS)):
+                cases.append((name + suffix, hover.expand(n, -1).contiguous(), cfg_h,
+                              dict(kw, actions=hover_actions(system, raw, T, n))))
+        big = env.func.reset_batch(gen, big_B)[0].state.contiguous()
+        cases.append(('random_big_batch', big, cfg, random))
+        for name, state0, c, kw in cases:
+            ms = _time_ms(lambda: kernel(state0, c, 5, T, **kw))
+            rows.append(dict(system=system, case=name, B=state0.shape[0], T=T,
+                             n_substeps=n_sub, ms=ms, ns_per_substep=ms * 1e6 / (T * n_sub)))
+        del cases, big
+        torch.cuda.empty_cache()
+    return rows
+
+
+def substep_chunk() -> int:
+    """The substeps one unrolled chunk of the compiled-in count runs
+    (csrc/rollout_modes.cuh SCG_SUBSTEP_CHUNK, or this build's -D)."""
+    for flag in _build.NVCC_FLAGS:
+        if flag.startswith('-DSCG_SUBSTEP_CHUNK='):
+            return int(flag.split('=')[1])
+    text = open(os.path.join(_build.CSRC_DIR, 'rollout_modes.cuh')).read()
+    return int(re.search(r'#define SCG_SUBSTEP_CHUNK (\d+)', text).group(1))
+
+
+def _substeps_per_iteration(kernel_name: str) -> int:
+    """Substeps one iteration of a rollout kernel's substep loop runs: a
+    chunk where the kernel is specialised to the compile-time count (a
+    template argument of 20 in the mangled name), else 1 (a loop over a
+    runtime count)."""
+    m = re.search(r'rollout_kernelI((?:Li\d+E)+)', kernel_name)
+    args = [int(a) for a in re.findall(r'Li(\d+)E', m.group(1))] if m else []
+    n = rk.SPECIALISED_SUBSTEPS
+    return min(substep_chunk(), n) if n in args else 1
+
+
+def chain_sass(libs):
+    """{system: {kernel: [loops]}} of the open-loop rollout kernels and the
+    per-step kernels (``sass.loops``), with the loop that runs the substeps
+    marked ``substep_loop`` and its figures per substep (an iteration runs a
+    chunk of them where the count is compiled in, else one)."""
+    from safe_control_gym_tpu_torch.experiments import sass
+    text = {name: sass.disassemble(path) for name, path in libs.items()}
+    funcs = {lib: sass.parse(t) for lib, t in text.items()}
+    out = {}
+    for system, (lib, rollout, advance) in CHAIN_KERNELS.items():
+        rows = {}
+        for fname, code in funcs[lib].items():
+            if not (rollout in fname or advance in fname) or 'policy' in fname:
+                continue
+            found = sass.loops(code)
+            per_iter = _substeps_per_iteration(fname) if rollout in fname else 1
+            # The substep loop: the innermost loop whose fast path reduces
+            # angles (F2I) with no sinf/cosf slow path in or below it
+            # (exact_math.cuh's copies); in a kernel without one, the
+            # innermost loop with such a slow path.
+            library = [lp for lp in found if lp.contains_sincos]
+            exact = [lp for lp in found if lp.converts and not lp.contains_sincos
+                     and not any(lp.start <= lib.start and lib.end <= lp.end
+                                 for lib in library)]
+            inner = min(exact or library, key=lambda lp: lp.instructions, default=None)
+            entry = dict(loops=[lp.summary() for lp in found], substeps_per_iteration=per_iter)
+            if inner is not None:
+                entry['substep_loop'] = dict(
+                    inner.summary(),
+                    fast_path_per_substep=inner.fast_path / per_iter,
+                    chain_cycles_per_substep=inner.recurrence / per_iter,
+                    slow_paths_per_substep={k: v / per_iter
+                                            for k, v in inner.slow_paths.items()})
+            rows[fname] = entry
+        out[system] = rows
+    return out
+
+
+def chain_bound_ms(cycles_per_substep, T, n_substeps, clock_ghz):
+    """T x n_substeps x the chain's cycles at the clock, in ms."""
+    return T * n_substeps * cycles_per_substep / (clock_ghz * 1e6)
+
+
+def reference_chain_cycles(sass_rows):
+    """{system: loop-carried cycles of one substep} from the per-step kernel
+    (one thread, one substep an iteration)."""
+    out = {}
+    for system, (_, _, advance) in CHAIN_KERNELS.items():
+        for fname, entry in sass_rows[system].items():
+            if advance in fname and 'substep_loop' in entry:
+                out[system] = entry['substep_loop']['chain_cycles_per_substep']
+    return out
+
+
+def chain_report(dev, root=None):
+    """Step 0 of a redesign of the open loop: times, SASS and chain bound,
+    one JSON line each."""
+    others = []
+    if root:
+        others.append(_times_of(root))
+    clock = sm_clock_ghz()
+    times = chain_times(dev)
+    times_again = chain_times(dev)
+    if root:
+        others.append(_times_of(root))
+    print(json.dumps({'exact_math': rk.exact_math_check(dev)}), flush=True)
+    libs = _build.build_all()
+    rows = chain_sass(libs)
+    ref = reference_chain_cycles(rows)
+    for system, kernels in rows.items():
+        for fname, entry in kernels.items():
+            print(json.dumps({'sass': system, 'kernel': fname, **entry}), flush=True)
+    timed = []
+    for label, runs in (('this', (times, times_again)), (root, others)):
+        for rep, rows_t in enumerate(runs):
+            for row in rows_t:
+                timed.append({'chain_time': label, 'rep': rep, **row})
+                print(json.dumps(timed[-1]), flush=True)
+    n_sub = rk.SPECIALISED_SUBSTEPS
+    for system, cycles in ref.items():
+        print(json.dumps({'chain_bound': system, 'cycles_per_substep': cycles,
+                          'sm_clock_ghz': clock,
+                          'ms_T131072': chain_bound_ms(cycles, 131072, n_sub, clock),
+                          'ms_T4096': chain_bound_ms(cycles, CHAIN_T, n_sub, clock)}),
+              flush=True)
+    return timed
+
+
+def _times_of(root, chunk=None):
+    """``chain_times`` of the checkout at ``root``, in a subprocess that
+    imports that checkout's package; with ``chunk``, of this checkout's
+    kernels built with ``-DSCG_SUBSTEP_CHUNK=chunk`` into a build directory
+    of their own."""
+    extra = [] if chunk is None else ['--chunk-build', str(chunk)]
+    root = os.path.abspath(root)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--chain-times', *extra],
+                          cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'chain times of {root} failed:\n{proc.stderr[-4000:]}')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def chunk_report(chunks):
+    """ns a substep (``chain_times``) of the kernels built with each substep
+    chunk in ``chunks`` (rollout_modes.cuh), in turns: each chunk, then each
+    again in reverse order. Returns the rows."""
+    order = list(chunks) + list(reversed(chunks))
+    rows = []
+    for rep, chunk in enumerate(order):
+        for row in _times_of(ROOT, chunk):
+            rows.append({'chain_time': f'chunk {chunk}', 'rep': rep, **row})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def print_summary(rows):
+    """One line per (checkout or build, system, case) of the main cases:
+    the fewest ns a substep over the repeats."""
+    best = {}
+    for r in rows:
+        if r['case'] in ('random', 'hover', 'hover_tilted', 'random_big_batch'):
+            key = (r['chain_time'], r['system'], r['case'])
+            best[key] = min(best.get(key, float('inf')), r['ns_per_substep'])
+    for (label, system, case), ns in best.items():
+        print(f'summary {label[-14:]:>14} {system:>12} {case:>16} {ns:9.2f} ns/substep')
 
 
 def ptxas_report(name: str = 'quad_kernels') -> str:
@@ -88,6 +369,15 @@ def policy_floor(dev, T=2048):
               'us a step; open loop, replay:', ms_open * 1e3 / T, 'us a step')
 
 
+def open_loop_checks(dev, T=60):
+    """``chip_smoke.py``'s k4 and k5 phases (every open-loop case, bit for
+    bit against the plain version) at a short ``T``."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    for system in chip_smoke.SYSTEMS:
+        chip_smoke.check_rollout(system, dev, length=T)
+
+
 def policy_checks(dev, T=40):
     """``chip_smoke.py``'s k4_policy and k5_policy phases at a short ``T``."""
     sys.path.insert(0, ROOT)
@@ -100,8 +390,33 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--floor', action='store_true',
                         help='also time the policy kernel without the actor\'s products')
+    parser.add_argument('--chain', action='store_true',
+                        help='only measure the open loop\'s serial chain (see above)')
+    parser.add_argument('--root', default=None,
+                        help='with --chain: also time the kernels of this checkout')
+    parser.add_argument('--chunks', default=None,
+                        help='with --chain: also time builds with these substep chunks, '
+                             'e.g. 20,5,4')
+    parser.add_argument('--chain-times', action='store_true', help=argparse.SUPPRESS)
+    parser.add_argument('--chunk-build', type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     dev = require_cuda('cuda')
+    if args.chain_times:
+        if args.chunk_build is not None:
+            _build.BUILD_DIR = os.path.join(_build.BUILD_DIR, f'chunk{args.chunk_build}')
+            _build.NVCC_FLAGS = [*_build.NVCC_FLAGS, f'-DSCG_SUBSTEP_CHUNK={args.chunk_build}']
+            _build.build_all()
+        print(json.dumps(chain_times(dev)))
+        return
+    if args.chain:
+        timed = chain_report(dev, args.root)
+        if args.chunks:
+            timed += chunk_report([int(c) for c in args.chunks.split(',')])
+        print_summary(timed)
+        print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                              '--format=csv,noheader'], capture_output=True,
+                             text=True).stdout)
+        return
     print(ptxas_report('cartpole_kernels'))
     print(ptxas_report())
     policy_smem_report()
@@ -122,37 +437,8 @@ def main():
           torch.tensor([0.027, 1.4e-5, 1.4e-5, 2.17e-5, 0.0397, 9.8], device=dev))
     print('k3 err', float((pk.quad3d_advance(*a3, 20, 1e-3)
                            - pk.quad3d_advance_plain(*a3, 20, 1e-3)).abs().max()))
-    for system, roll, qt in (('quadrotor', rk.quad2d_rollout, 2),
-                             ('quadrotor_3D', rk.quad3d_rollout, 3)):
-        for constrained in (False, True):
-            env = _make(system, constrained, device=dev)
-            cfg = _kernel_cfg(system, env, constrained)
-            s0 = env.func.reset_batch(g, B)[0].state.contiguous()
-            kw = dict(constrained=constrained, randomized_reset=True)
-            k = roll(s0, cfg, 5, 60, 20, 1e-3, **kw)
-            p = rk.quad_rollout_plain(qt, s0, cfg, 5, 60, 20, 1e-3, **kw)
-            torch.cuda.synchronize()
-            print(system, f'constrained={constrained}',
-                  'state err', float((k['state'] - p['state']).abs().max()),
-                  'reward err', float((k['reward_sum'] - p['reward_sum']).abs().max()),
-                  'envs with other counts',
-                  {key: int((k[key] != p[key]).sum())
-                   for key in ('done_count', 'ctrl_step', 'violation_count')})
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            roll(s0, cfg, 6, 4096, 20, 1e-3, **kw)
-            e1.record()
-            torch.cuda.synchronize()
-            ms = e0.elapsed_time(e1)
-            print(f'  T=4096: {ms} ms, {B * 4096 / ms * 1e3} ctrl steps/s')
-    env = _make('cartpole', True, device=dev)
-    cfg = _kernel_cfg('cartpole', env, True)
-    s0 = env.func.reset_batch(g, B)[0].state.contiguous()
-    k = rk.cartpole_rollout(s0, cfg, 7, 100, 20, 1e-3, constrained=True)
-    p = rk.cartpole_rollout_plain(s0, cfg, 7, 100, 20, 1e-3, constrained=True)
-    torch.cuda.synchronize()
-    print('k4 state err', float((k['state'] - p['state']).abs().max()),
-          'reward err', float((k['reward_sum'] - p['reward_sum']).abs().max()))
+    print('exact_math', rk.exact_math_check(dev))
+    open_loop_checks(dev)
     policy_checks(dev)
     if args.floor:
         policy_floor(dev)

@@ -291,24 +291,34 @@ def test_policy_mode_and_replay_without_actions_raise():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('case', ['benchmark', 'ragged_4109', 'substeps_7', 'hover'])
 @pytest.mark.parametrize('system', ['quadrotor', 'quadrotor_3D'])
-def test_cuda_kernel_matches_plain_version(system):
+def test_cuda_kernel_matches_plain_version(system, case):
+    """The CUDA kernel equals its plain version bit for bit: the constrained
+    benchmark config at B=4096 (3D: a team of 4 lanes an env), a batch that
+    is no multiple of a warp's 8 teams, the general path over a runtime
+    substep count, and a hover start (3D: zero numerators in the quotients)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
+    from safe_control_gym_tpu_torch.experiments.kernel_first_check import (hover_actions,
+                                                                            hover_case)
     dev = torch.device('cuda')
     te = tmake('quadrotor', device=dev, **_env_kwargs(system, True))
     cfg = trk.quad_rollout_cfg(te)
     cfg[trk._Q['NOISE_STD']] = 0.1
-    states, _ = te.func.reset_batch(torch.Generator(device=dev).manual_seed(0), 4096)
+    B, T = (4109 if case == 'ragged_4109' else 4096), 64
+    states, _ = te.func.reset_batch(torch.Generator(device=dev).manual_seed(0), B)
     s0 = states.state.contiguous()
+    kw = dict(n_substeps=7 if case == 'substeps_7' else 20, dt=1e-3, constrained=True)
+    if case == 'hover':
+        hover, raw, cfg, kw = hover_case(system, dev)
+        s0 = hover.expand(B, -1).contiguous()
+        kw = dict(kw, actions=hover_actions(system, raw, T, B))
     roll = trk.quad2d_rollout if system == 'quadrotor' else trk.quad3d_rollout
     before = roll.launches
-    k = roll(s0, cfg, 3, 64, 20, 1e-3, constrained=True)
-    p = trk.quad_rollout_plain(2 if system == 'quadrotor' else 3, s0, cfg, 3, 64, 20,
-                               1e-3, constrained=True)
+    k = roll(s0, cfg, 3, T, **kw)
+    p = trk.quad_rollout_plain(2 if system == 'quadrotor' else 3, s0, cfg, 3, T, **kw)
     torch.cuda.synchronize()
     assert roll.launches == before + 1
-    torch.testing.assert_close(k['state'], p['state'], rtol=0, atol=1e-4)
-    for key in ('done_count', 'ctrl_step', 'violation_count'):
+    for key in ('state', 'reward_sum', 'done_count', 'ctrl_step', 'violation_count'):
         assert torch.equal(k[key], p[key]), key
-    torch.testing.assert_close(k['reward_sum'], p['reward_sum'], rtol=1e-4, atol=1e-4)

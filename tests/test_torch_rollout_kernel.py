@@ -264,21 +264,31 @@ def test_stochastic_mode_matches_per_step_path_in_distribution(constrained):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize('case', ['benchmark', 'ragged_4109', 'substeps_7', 'hover'])
+def test_cuda_kernel_matches_plain_version(case):
+    """The CUDA kernel equals its plain version bit for bit: the constrained
+    benchmark config at B=4096, a batch that is no multiple of a warp, the
+    general path over a runtime substep count, and a hover start."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
+    from safe_control_gym_tpu_torch.experiments.kernel_first_check import (hover_actions,
+                                                                            hover_case)
     dev = torch.device('cuda')
     te = tmake('cartpole', device=dev, **_env_kwargs('cartpole', True))
     cfg = trk.cartpole_rollout_cfg(te)
     cfg[trk._C['NOISE_STD']] = 0.1
-    states, _ = te.func.reset_batch(torch.Generator(device=dev).manual_seed(0), 4096)
+    B, T = (4109 if case == 'ragged_4109' else 4096), 64
+    states, _ = te.func.reset_batch(torch.Generator(device=dev).manual_seed(0), B)
     s0 = states.state.contiguous()
+    kw = dict(n_substeps=7 if case == 'substeps_7' else 20, dt=1e-3, constrained=True)
+    if case == 'hover':
+        hover, raw, cfg, kw = hover_case('cartpole', dev)
+        s0 = hover.expand(B, -1).contiguous()
+        kw = dict(kw, actions=hover_actions('cartpole', raw, T, B))
     before = trk.cartpole_rollout.launches
-    k = trk.cartpole_rollout(s0, cfg, 3, 64, 20, 1e-3, constrained=True)
-    p = trk.cartpole_rollout_plain(s0, cfg, 3, 64, 20, 1e-3, constrained=True)
+    k = trk.cartpole_rollout(s0, cfg, 3, T, **kw)
+    p = trk.cartpole_rollout_plain(s0, cfg, 3, T, **kw)
     torch.cuda.synchronize()
     assert trk.cartpole_rollout.launches == before + 1
-    torch.testing.assert_close(k['state'], p['state'], rtol=0, atol=1e-4)
-    for key in ('done_count', 'ctrl_step', 'violation_count'):
+    for key in ('state', 'reward_sum', 'done_count', 'ctrl_step', 'violation_count'):
         assert torch.equal(k[key], p[key]), key
-    torch.testing.assert_close(k['reward_sum'], p['reward_sum'], rtol=1e-4, atol=1e-4)
