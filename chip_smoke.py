@@ -15,13 +15,16 @@ Phases, one JSON line each:
                B=4096 in three modes (replay, tracking with quadratic cost,
                constrained with white action noise and Philox draws), and
                constrained at B=4109, at n_substeps 7 and 4 (the general path),
-               in 3D with one lane an env, on a hover replay and with angles
-               past sinf's fast range (the step's library recompute);
+               at four warps an SM (B=16896 on 132 SMs), on a hover replay
+               and with angles past sinf's fast range (the step's library
+               recompute);
      chain     csrc/exact_math.cuh against the CUDA math library, the SASS of
                the substep loops, ns a substep on random and hover rows and
-               at B=65536, the chain cycles of a substep and the SM clock
-               (kernel_first_check --chain); the open-loop rows of the kernels
-               line gain chain_bound_ms, lanes_per_env and these times;
+               at B=65536, the latencies of the chain's instructions on this
+               card (csrc/latency_probe.cu), the chain cycles of a substep at
+               those latencies and the SM clock (kernel_first_check --chain);
+               the open-loop rows of the kernels line gain chain_bound_ms,
+               lanes_per_env and these times;
   5. main_path make(..., device='cuda') -> measure_batched (per-step path, K1,
                K2, K3) plain and constrained, and measure_rollout_kernel
                (whole-rollout path, K4, K5) on the reference benchmark's rows,
@@ -228,13 +231,11 @@ def _rollout_cases(system, dev, T):
     constrained with noise and Philox draws); constrained draws at B_RAGGED
     (a last warp of 8 envs and a last block partly filled), at n_substeps 7
     and 4 (the kernels' general path; the others run the 20 compiled in) and,
-    in 3D, at a batch large enough for one lane an env; a hover replay (the
-    angles exactly 0: zero numerators in 3D's quotients); and envs started at
-    an angle past sinf's fast range (the step recomputed with the library's
-    functions)."""
+    at a batch of four warps an SM (blocks of 128 threads); a hover replay
+    (the angles exactly 0: zero numerators in 3D's quotients); and envs
+    started at an angle past sinf's fast range (the step recomputed with the
+    library's functions)."""
     from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
-    from safe_control_gym_tpu_torch.experiments.kernel_first_check import (hover_actions,
-                                                                            hover_case)
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     from safe_control_gym_tpu_torch.utils.registration import make
     g = torch.Generator(device=dev).manual_seed(1)
@@ -264,12 +265,11 @@ def _rollout_cases(system, dev, T):
     for n_sub in (7, 4):
         cases.append((f'substeps_{n_sub}_constrained', s0, cfg,
                       dict(kw, n_substeps=n_sub, dt=env.CTRL_TIMESTEP / n_sub)))
-    if system == 'quadrotor_3D':
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        cases.append(('one_lane_an_env_constrained', reset(32 * 4 * n_sm), cfg, kw))
-    hover, raw, cfg_h, kw_h = hover_case(system, dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases.append(('large_batch_constrained', reset(32 * 4 * n_sm), cfg, kw))
+    hover, raw, cfg_h, kw_h = bs.hover_case(system, dev)
     cases.append(('hover', hover.expand(B, -1).contiguous(), cfg_h,
-                  dict(kw_h, actions=hover_actions(system, raw, T, B))))
+                  dict(kw_h, actions=bs.hover_actions(system, raw, T, B))))
     special = s0.clone()
     special[::97, ANGLE_DIM[system]] = 2.0e5
     cases.append(('angle_past_sinf_fast_range', special, cfg, kw))
@@ -372,17 +372,22 @@ def chain(dev):
     """The open loop's serial chain (``kernel_first_check --chain``): the
     exact-math check (every result of csrc/exact_math.cuh equal to the
     library's), ns a substep on random and hover rows at B, one block and
-    B=65536, the SASS of the substep loops, the chain cycles of one substep
-    (the per-step kernels' loops) and the SM clock under load."""
+    B=65536, the latencies of the chain's instruction classes on this card
+    (csrc/latency_probe.cu), the SASS of the substep loops, the chain cycles
+    of one substep (the per-step kernels' loops) at those latencies, and the
+    SM clock under load."""
     from safe_control_gym_tpu_torch.experiments import kernel_first_check as kfc
-    from safe_control_gym_tpu_torch.ops import _build
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     exact = rk.exact_math_check(dev)
     emit('chain', exact_math=exact)
     if any(differ for _, differ in exact.values()) or not all(n for n, _ in exact.values()):
         raise RuntimeError(f'csrc/exact_math.cuh differs from the CUDA math library: {exact}')
     clock = kfc.sm_clock_ghz()
-    sass_rows = kfc.chain_sass(_build.build_all())
+    probes, sass_rows = kfc.measured_chain(dev)
+    for row in probes:
+        emit('chain', latency=row)
+        if not 1.0 <= row['cycles'] <= 200.0:
+            raise RuntimeError(f'implausible latency reading {row}')
     for system, kernels in sass_rows.items():
         for fname, entry in kernels.items():
             if 'substep_loop' in entry:
@@ -391,6 +396,8 @@ def chain(dev):
     for row in times:
         emit('chain', **row)
     return dict(clock_ghz=clock, cycles=kfc.reference_chain_cycles(sass_rows),
+                table_cycles=kfc.reference_chain_cycles(sass_rows, 'chain_cycles_table'),
+                latency={row['probe']: row['cycles'] for row in probes},
                 times={(r['system'], r['case']): r for r in times})
 
 
@@ -812,7 +819,6 @@ def main():
         sys.exit(2)
     from safe_control_gym_tpu_torch.ops import _build
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
-    from safe_control_gym_tpu_torch.ops._launch import open_loop_launch
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -856,13 +862,17 @@ def main():
                         main_row['mean_done_count'] * B))[0]
         row['main_path_shape'] = f'B={B} T={T_ROLLOUT} constrained'
         # The chain bound: T x n_substeps x one substep's loop-carried chain
-        # (the per-step kernel's loop) at the SM clock measured in this run.
+        # (the per-step kernel's loop) at the latencies and the SM clock
+        # measured in this run.
         cycles = serial['cycles'][system]
         row['chain_cycles_per_substep'] = cycles
+        row['chain_cycles_table_estimate'] = serial['table_cycles'][system]
+        row['chain_latencies'] = serial['latency']
+        row['chain_bound_by'] = 'latencies measured in this run (csrc/latency_probe.cu)'
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles * T_ROLLOUT * N_SUB / (serial['clock_ghz'] * 1e6)
         row['share_of_chain_bound'] = row['chain_bound_ms'] / row['main_path_ms']
-        row['lanes_per_env'] = open_loop_launch(B, dev, team=system == 'quadrotor_3D')[1]
+        row['lanes_per_env'] = 1
         times = serial['times']
         for case in ('random', 'hover', 'hover_tilted'):
             if (system, case) in times:

@@ -23,7 +23,7 @@
 // once; at B=4096 it is bound by how fast one warp runs one env's T x
 // n_substeps substeps, not by FLOP/s or bytes.
 //
-// K5's open loop, quad_rollout_kernel<QT, N, LANES>. What bounded it: every
+// K5's open loop, quad_rollout_kernel<QT, N>. What bounded it: every
 // library sinf, cosf and divide ends in a branch to its slow path, and a warp
 // stalls at each branch while ptxas schedules each call on its own, so one
 // warp an SM ran a 3D substep (232 instructions, nine such branches) in
@@ -31,30 +31,28 @@
 // their slow path (kernel_first_check --chain). What the design does:
 // - exact_math.cuh's branch-free copies of the library's fast paths, and the
 //   step recomputed with the library's own functions where an operand was
-//   special: a chunk of substeps (rollout_modes.cuh) is one basic block;
+//   special: a chunk of substeps (rollout_modes.cuh) is one basic block, so
+//   the chunk's independent sin/cos pairs and quotients overlap;
 // - N = kSpecialisedSubsteps compiled in (the benchmark's and the committed
 //   models' 1000 Hz under 50 Hz); N = 0, any other count, loops over it;
 // - 2D: in each chunk the angles first, then their sin/cos pairs, then the x
-//   and z sums, so the pairs overlap;
-// - 3D at a batch that leaves warp schedulers without a warp
-//   (ops/_launch.py team_width): a team of kTeamLanes lanes an env, so four
-//   warps an SM at B=4096, one on each scheduler. Every lane holds the whole
-//   state; lane k takes the k-th angle's sin/cos, the k-th quotient, rotor
-//   k's motor model and the reset's k-th Philox block, and __shfl_sync over
-//   the team's four lanes hands them round; every lane computes the rest
-//   itself, so the copies stay identical, and lane 0 stores. Where the batch already
-//   gives every scheduler a warp, one lane an env: the team's repeated work
-//   would only cost issue slots.
+//   and z sums, so the pairs overlap.
+// What bounds it now: one warp's issue and latency along a step, since one
+// thread owns one env. A team of four lanes an env (each lane one sin/cos
+// pair or quotient, __shfl_sync to the others) was measured slower than one
+// lane at every batch from 4096 to 65536, in 2D and in 3D: the shuffles
+// lengthen the chain one warp already runs at its own pace, and the step's
+// rest runs on every lane. Up to about four warps an SM (B = 16384 on 132
+// SMs) a substep takes the same time as at B=4096.
 // In policy mode the actor's float32 products dominate each step, and a
 // separate kernel, quad_policy_rollout_kernel<QT>, runs them with a block of
 // 256 threads for every 32 envs (policy_mlp.cuh) and the library's substeps
 // (quad_step<QT>, which shares the reward, done and reset with the open
 // loop).
 //
-// Launch shape. K2, K3, and K5's open loop with one lane an env: block_size
+// Launch shape. K2, K3 and K5's open loop, one thread an env: block_size
 // (ops/_launch.py), 32 threads a block at B=4096 so that every SM holds a
-// block. The 3D team: kTeamLanes * kTeamEnvs = 128 threads a block, 128
-// blocks at B=4096. Policy mode: 256 threads for every 32 envs.
+// block. Policy mode: 256 threads for every 32 envs.
 //
 // Numerics. Every expression follows the plain PyTorch version
 // (ops/physics_kernels.py, ops/rollout_kernels.py) operation for
@@ -94,13 +92,9 @@ using scg::uniform4;
 
 constexpr float kSqrt2 = 1.41421356237309515f;  // float32(sqrt(2))
 
-// The open loop's launch geometry (ops/rollout_kernels.py
-// SPECIALISED_SUBSTEPS, ops/_launch.py TEAM_LANES and TEAM_ENVS): the
-// substep count compiled in, and the 3D team of lanes per env with its envs a
-// block (kTeamLanes * kTeamEnvs threads).
+// The substep count the open loop compiles in (ops/rollout_kernels.py
+// SPECIALISED_SUBSTEPS).
 constexpr int kSpecialisedSubsteps = 20;
-constexpr int kTeamLanes = 4;
-constexpr int kTeamEnvs = 32;
 
 // cfg vector layout (ops/rollout_kernels.py _Q), sized for the 3D case; the
 // 2D kernel reads the first nx / nu entries of each group.
@@ -273,17 +267,12 @@ __device__ __forceinline__ Quad3DConsts quad3d_consts(float m, float Ixx, float 
                       (Iyy - Ixx) / Izz, Ixx, Iyy, Izz, g};
 }
 
-// 3D with LANES lanes an env. LANES == 1: one thread does all. LANES ==
-// kTeamLanes: every lane holds the whole state; lane k takes the sin/cos of
-// the k-th angle (phi, theta, psi; lane 3 repeats psi) and the k-th quotient
-// (sth / cth, sphi / cth, cphi / cth), and __shfl_sync over the team hands
-// the results round; every lane computes the rest itself, so the four copies
-// of the state stay identical.
-template <int N, int LANES>
+// 3D: the three sin/cos pairs and the three quotients of a substep are
+// independent of each other, and a chunk of substeps is one basic block.
+template <int N>
 __device__ __forceinline__ bool quad3d_substeps_exact(float (&s)[12], float f0, float f1,
                                                       float f2, float f3, float zt,
-                                                      const Quad3DConsts& k, int n, float dt,
-                                                      unsigned team_mask, int lane) {
+                                                      const Quad3DConsts& k, int n, float dt) {
   float x = s[0], xd = s[1], y = s[2], yd = s[3], z = s[4], zd = s[5];
   float phi = s[6], th = s[7], psi = s[8], p = s[9], q = s[10], r = s[11];
   const float total = f0 + f1 + f2 + f3;
@@ -299,20 +288,9 @@ __device__ __forceinline__ bool quad3d_substeps_exact(float (&s)[12], float f0, 
   ok &= div_exact(zt, k.Izz, zt_I);
   auto substep = [&]() {
     float sphi, cphi, sth, cth, spsi, cpsi;
-    if constexpr (LANES == 1) {
-      ok &= sincos_exact(phi, sphi, cphi);
-      ok &= sincos_exact(th, sth, cth);
-      ok &= sincos_exact(psi, spsi, cpsi);
-    } else {
-      float sa, ca;
-      ok &= sincos_exact(lane == 0 ? phi : (lane == 1 ? th : psi), sa, ca);
-      sphi = __shfl_sync(team_mask, sa, 0, LANES);
-      cphi = __shfl_sync(team_mask, ca, 0, LANES);
-      sth = __shfl_sync(team_mask, sa, 1, LANES);
-      cth = __shfl_sync(team_mask, ca, 1, LANES);
-      spsi = __shfl_sync(team_mask, sa, 2, LANES);
-      cpsi = __shfl_sync(team_mask, ca, 2, LANES);
-    }
+    ok &= sincos_exact(phi, sphi, cphi);
+    ok &= sincos_exact(th, sth, cth);
+    ok &= sincos_exact(psi, spsi, cpsi);
     const float x_dd = (cphi * sth * cpsi + sphi * spsi) * tom + fxm;
     const float y_dd = (cphi * sth * spsi - sphi * cpsi) * tom + fym;
     const float z_dd = cphi * cth * tom + fzm_g;
@@ -329,17 +307,9 @@ __device__ __forceinline__ bool quad3d_substeps_exact(float (&s)[12], float f0, 
     y = y + dt * yd;
     z = z + dt * zd;
     float tth, sphi_c, cphi_c;
-    if constexpr (LANES == 1) {
-      ok &= div_exact(sth, cth, tth);
-      ok &= div_exact(sphi, cth, sphi_c);
-      ok &= div_exact(cphi, cth, cphi_c);
-    } else {
-      float quo;
-      ok &= div_exact(lane == 0 ? sth : (lane == 1 ? sphi : cphi), cth, quo);
-      tth = __shfl_sync(team_mask, quo, 0, LANES);
-      sphi_c = __shfl_sync(team_mask, quo, 1, LANES);
-      cphi_c = __shfl_sync(team_mask, quo, 2, LANES);
-    }
+    ok &= div_exact(sth, cth, tth);
+    ok &= div_exact(sphi, cth, sphi_c);
+    ok &= div_exact(cphi, cth, cphi_c);
     const float phi_d = p + sphi * tth * q + cphi * tth * r;
     const float th_d = cphi * q - sphi * r;
     const float psi_d = sphi_c * q + cphi_c * r;
@@ -596,40 +566,35 @@ __device__ __forceinline__ void quad_step(const Modes& m, const float* c,
 }
 
 // One control step of the open loop for env b, as quad_step but with the
-// substeps of quad2d_substeps_exact / quad3d_substeps_exact (the library's
-// substeps where those report a special operand), and, for a team of LANES
-// lanes (3D), lane d running rotor d's motor model and lane k drawing the
-// k-th Philox block (j = 3 + k) of a fresh state, each handed to the team.
-template <int QT, int N, int LANES>
+// substeps of quad2d_substeps_exact / quad3d_substeps_exact, or the library's
+// substeps where those report a special operand.
+template <int QT, int N>
 __device__ __forceinline__ void quad_open_step(const Modes& m, const float* c,
                                                float (&noisy)[QuadDims<QT>::NU],
                                                uint32_t seed, int b, int t,
                                                const float* __restrict__ x_goal, int n_goal,
                                                int n_substeps, float dt, float inv_nkf,
                                                float inv_scale, const Quad3DConsts& k3,
-                                               unsigned team_mask, int lane, QuadEnv<QT>& e) {
+                                               QuadEnv<QT>& e) {
   constexpr int NX = QuadDims<QT>::NX;
   constexpr int NU = QuadDims<QT>::NU;
   float (&s)[NX] = e.s;
   if (m.action_noise) quad_action_noise(c, noisy, seed, b, t);
   float clipped[NU], rpm[NU];
 #pragma unroll
-  for (int d = 0; d < NU; ++d) clipped[d] = fminf(fmaxf(noisy[d], c[PHYS_LO]), c[PHYS_HI]);
-  if constexpr (LANES == 1) {
-#pragma unroll
-    for (int d = 0; d < NU; ++d) rpm[d] = quad_rpm(c, clipped[d], inv_nkf, inv_scale);
+  for (int d = 0; d < NU; ++d) {
+    clipped[d] = fminf(fmaxf(noisy[d], c[PHYS_LO]), c[PHYS_HI]);
+    rpm[d] = quad_rpm(c, clipped[d], inv_nkf, inv_scale);
   }
 
   float start[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) start[k] = s[k];
-  bool ok;
   if constexpr (QT == 2) {
     const float T1 = 2.0f * c[KF] * rpm[0] * rpm[0];
     const float T2 = 2.0f * c[KF] * rpm[1] * rpm[1];
-    ok = quad2d_substeps_exact<N>(s, T1, T2, c[MASS], c[IYY], c[ARM_L], c[GRAVITY],
-                                  n_substeps, dt);
-    if (!ok) {
+    if (!quad2d_substeps_exact<N>(s, T1, T2, c[MASS], c[IYY], c[ARM_L], c[GRAVITY],
+                                  n_substeps, dt)) {
 #pragma unroll
       for (int k = 0; k < NX; ++k) s[k] = start[k];
       quad2d_substeps(s[0], s[1], s[2], s[3], s[4], s[5], T1, T2, 0.0f, 0.0f, c[MASS],
@@ -637,29 +602,13 @@ __device__ __forceinline__ void quad_open_step(const Modes& m, const float* c,
     }
   } else {
     float f[4], tq[4];
-    if constexpr (LANES == 1) {
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        f[d] = c[KF] * rpm[d] * rpm[d];
-        tq[d] = c[KM] * rpm[d] * rpm[d];
-      }
-    } else {
-      const float mine = lane == 0 ? clipped[0]
-                         : lane == 1 ? clipped[1] : lane == 2 ? clipped[2] : clipped[3];
-      const float own = quad_rpm(c, mine, inv_nkf, inv_scale);
-      const float f_own = c[KF] * own * own;
-      const float tq_own = c[KM] * own * own;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        f[d] = __shfl_sync(team_mask, f_own, d, LANES);
-        tq[d] = __shfl_sync(team_mask, tq_own, d, LANES);
-      }
+    for (int d = 0; d < 4; ++d) {
+      f[d] = c[KF] * rpm[d] * rpm[d];
+      tq[d] = c[KM] * rpm[d] * rpm[d];
     }
     const float zt = -tq[0] + tq[1] - tq[2] + tq[3];
-    ok = quad3d_substeps_exact<N, LANES>(s, f[0], f[1], f[2], f[3], zt, k3, n_substeps, dt,
-                                         team_mask, lane);
-    if constexpr (LANES > 1) ok = __all_sync(team_mask, ok);
-    if (!ok) {
+    if (!quad3d_substeps_exact<N>(s, f[0], f[1], f[2], f[3], zt, k3, n_substeps, dt)) {
 #pragma unroll
       for (int k = 0; k < NX; ++k) s[k] = start[k];
       quad3d_substeps(s, f[0], f[1], f[2], f[3], zt, 0.0f, 0.0f, 0.0f, c[MASS], c[IXX],
@@ -671,24 +620,15 @@ __device__ __forceinline__ void quad_open_step(const Modes& m, const float* c,
   const bool done = quad_outcome<QT>(m, c, noisy, clipped, x_goal, n_goal, e, rew);
   float rnd_r[12];
   if (done && m.randomized_reset) {
-    if constexpr (LANES == 1) {
 #pragma unroll
-      for (int j = 0; j < (NX + 3) / 4; ++j) uniform4(seed, b, t, 3u + j, rnd_r + 4 * j);
-    } else {
-      // done is the same on every lane of the team.
-      float w[4];
-      uniform4(seed, b, t, 3u + min(lane, (NX + 3) / 4 - 1), w);
-#pragma unroll
-      for (int k = 0; k < NX; ++k) rnd_r[k] = __shfl_sync(team_mask, w[k & 3], k / 4, LANES);
-    }
+    for (int j = 0; j < (NX + 3) / 4; ++j) uniform4(seed, b, t, 3u + j, rnd_r + 4 * j);
   }
   quad_finish<QT>(m, c, done, rnd_r, rew, e);
 }
 
-// The open loop: LANES lanes an env (1, or a team of kTeamLanes in 3D),
-// actions drawn or replayed; N substeps compiled in, or n_substeps if N == 0.
-// Lane 0 of a team stores the env.
-template <int QT, int N, int LANES>
+// The open loop: one thread an env, actions drawn or replayed; N substeps
+// compiled in, or n_substeps if N == 0.
+template <int QT, int N>
 __global__ void quad_rollout_kernel(
     const float* __restrict__ state0, const float* __restrict__ cfg_g,
     const float* __restrict__ actions, const float* __restrict__ x_goal,
@@ -700,11 +640,8 @@ __global__ void quad_rollout_kernel(
   __shared__ float c[QUAD_CFG_LEN];
   for (int k = threadIdx.x; k < QUAD_CFG_LEN; k += blockDim.x) c[k] = cfg_g[k];
   __syncthreads();
-  const int thread = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = thread / LANES;
-  if (b >= B) return;       // a whole team at once
-  const int lane = thread % LANES;
-  const unsigned team_mask = LANES == 1 ? 1u : ((1u << LANES) - 1u) << (threadIdx.x & 31 & ~(LANES - 1));
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
   const Modes m = modes(flags);
   QuadEnv<QT> e;
   load_env(e, state0, b);
@@ -726,10 +663,10 @@ __global__ void quad_rollout_kernel(
           : actions[((size_t)t * B + b) * NU + d];
       noisy[d] = c[DEN_A] * raw + c[DEN_B];
     }
-    quad_open_step<QT, N, LANES>(m, c, noisy, seed, b, t, x_goal, n_goal, n_substeps, dt,
-                                 inv_nkf, inv_scale, k3, team_mask, lane, e);
+    quad_open_step<QT, N>(m, c, noisy, seed, b, t, x_goal, n_goal, n_substeps, dt, inv_nkf,
+                          inv_scale, k3, e);
   }
-  if (lane == 0) store_env(e, b, state_out, step_out, reward_out, done_out, viol_out);
+  store_env(e, b, state_out, step_out, reward_out, done_out, viol_out);
 }
 
 // The closed loop (policy_mlp.cuh): a block of kPolicyThreads threads for
@@ -897,34 +834,23 @@ int scg_quad3d_advance(const void* states, const void* forces,
 // widths h1, h2, nu_out, read when flags has F_POLICY. A policy launch takes
 // the geometry of ops/rollout_kernels.py _policy_launch (envs and threads a
 // block, W2's rows and columns a tile, dynamic shared memory bytes) and
-// refuses any other; an open-loop launch takes `threads` a block and `lanes`
-// lanes an env (ops/_launch.py open_loop_launch) and ignores the rest.
+// refuses any other; an open-loop launch takes `threads` a block of one
+// thread an env and ignores the rest.
 int scg_quad_rollout(int quad_type, const void* state0, const void* cfg,
                      const void* actions, const void* x_goal, const void* policy,
                      void* state_out, void* step_out, void* reward_out,
                      void* done_out, void* viol_out, int B, int T, int n_substeps,
                      float dt, unsigned int seed, int n_goal, int h1, int h2,
-                     int nu_out, float clip_obs, int flags, int threads, int lanes, int envs,
+                     int nu_out, float clip_obs, int flags, int threads, int envs,
                      int w2_rows, int w2_cols, int smem, void* stream) {
   if (quad_type != 2 && quad_type != 3) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
   if (!(flags & F_POLICY)) {
-    // lanes: 1, or a team of kTeamLanes in 3D; threads a block hold whole teams.
-    if (!(lanes == 1 || (quad_type == 3 && lanes == kTeamLanes)) || threads % lanes) {
-      return (int)cudaErrorInvalidValue;
-    }
     const bool spec = n_substeps == kSpecialisedSubsteps;
-    decltype(&quad_rollout_kernel<2, 0, 1>) kernel;
-    if (quad_type == 2) {
-      kernel = spec ? quad_rollout_kernel<2, kSpecialisedSubsteps, 1> : quad_rollout_kernel<2, 0, 1>;
-    } else if (lanes == 1) {
-      kernel = spec ? quad_rollout_kernel<3, kSpecialisedSubsteps, 1> : quad_rollout_kernel<3, 0, 1>;
-    } else {
-      kernel = spec ? quad_rollout_kernel<3, kSpecialisedSubsteps, kTeamLanes>
-                    : quad_rollout_kernel<3, 0, kTeamLanes>;
-    }
-    const long long n_threads = (long long)B * lanes;
-    kernel<<<(unsigned)((n_threads + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+    constexpr int S = kSpecialisedSubsteps;
+    auto kernel = quad_type == 2 ? (spec ? quad_rollout_kernel<2, S> : quad_rollout_kernel<2, 0>)
+                                 : (spec ? quad_rollout_kernel<3, S> : quad_rollout_kernel<3, 0>);
+    kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (const float*)state0, (const float*)cfg, (const float*)actions,
         (const float*)x_goal, (float*)state_out, (float*)step_out, (float*)reward_out,
         (float*)done_out, (float*)viol_out, B, T, n_substeps, dt, seed, n_goal, flags);

@@ -4,19 +4,14 @@
 
 #pragma once
 
+namespace scg {
+
 // The open loop runs its compiled-in substeps as a loop over chunks of
 // kSubstepChunk, each unrolled into one basic block: a chunk's substeps
 // overlap, and the step's code stays small enough for the SM's instruction
 // cache, which the fully unrolled step (2,000-4,600 instructions) overflows.
-// kernel_first_check --chain --chunks builds and times other values
-// (-DSCG_SUBSTEP_CHUNK=k).
-#ifndef SCG_SUBSTEP_CHUNK
-#define SCG_SUBSTEP_CHUNK 5
-#endif
-
-namespace scg {
-
-constexpr int kSubstepChunk = SCG_SUBSTEP_CHUNK;
+// (ops/rollout_kernels.py SUBSTEP_CHUNK states it too.)
+constexpr int kSubstepChunk = 5;
 
 // The compile-time loop of N > 0 substeps in chunks: body() N times.
 template <int N, typename Body>

@@ -28,7 +28,8 @@ from safe_control_gym_tpu_torch.utils.registration import make
 
 __all__ = ['CONSTRAINTS', 'DISTURBANCES', '_env_kwargs', 'kernel_covers',
            'measure_rollout_kernel', 'measure_closed_loop_kernel',
-           'measure_batched', 'per_step_rollout', 'sanity_check']
+           'measure_batched', 'per_step_rollout', 'sanity_check', 'hover_case',
+           'hover_actions']
 
 CONSTRAINTS = [{'constraint_form': 'default_constraint',
                 'constrained_variable': 'state'},
@@ -98,6 +99,42 @@ def _kernel_cfg(system, env, constrained):
         cfg[layout['NOISE_STD']] = float(
             env.disturbances['action'].disturbances[0].std[0])
     return cfg
+
+
+def hover_case(system, device='cuda', tilt=0.0):
+    """(state, raw action, cfg, kwargs) of a hover replay of ``system``'s
+    whole-rollout kernel: the nominal state (the cartpole upright at rest),
+    the raw action that commands the hover thrust on every motor (0 on the
+    cartpole), no noise, no goal, and a time-limit reset back to the same
+    state. ``tilt`` sets the quads' angles, which then stay put: equal motors
+    give no torque. Without a tilt the angles stay exactly 0. Replay it with
+    ``hover_actions``."""
+    env = _make(system, False, device=device)
+    layout = _kernel(system)[2]
+    cfg = _kernel_cfg(system, env, False)
+    if system == 'cartpole':
+        hover = torch.zeros(4, device=device)
+        raw = torch.zeros(1, device=device)
+    else:
+        hover = torch.as_tensor(env._nominal_init_state(), dtype=torch.float32,
+                                device=device)
+        hover[[4] if system == 'quadrotor' else [6, 7, 8]] = tilt
+        u_goal = cfg[layout['U_GOAL']:layout['U_GOAL'] + env.action_dim]
+        raw = (u_goal - cfg[layout['DEN_B']]) / cfg[layout['DEN_A']]
+    nx = hover.numel()
+    cfg[layout['TOL_SQ']] = 0.0
+    cfg[layout['INIT_LO']:layout['INIT_LO'] + nx] = hover
+    cfg[layout['INIT_HI']:layout['INIT_HI'] + nx] = hover
+    kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP, draw_actions=False,
+              constrained=False, action_noise=False, randomized_reset=False)
+    env.close()
+    return hover, raw, cfg, kw
+
+
+def hover_actions(system, raw, T, B):
+    """The (T, B[, nu]) replay of the hover command ``raw``."""
+    actions = raw.expand(T, B, raw.numel()).contiguous()
+    return actions[..., 0].contiguous() if system == 'cartpole' else actions
 
 
 def sanity_check(out, t_steps, label):

@@ -29,24 +29,34 @@ checks above:
   the angles stay exactly 0; the quads also tilted by 0.01 rad, where they
   stay at 0.01), each for the full batch and for one block of 32 envs; and
   the random rows at B=65536, T=4096. ``--root`` times another checkout's
-  kernels with the same code in a subprocess, before and after this one's
-  (other, this, this, other): the same card, the same call; ``--chunks
-  20,5,4`` times this checkout built with each substep chunk
-  (``rollout_modes.cuh``, ``-DSCG_SUBSTEP_CHUNK``) in turns;
+  kernels with its own copy of this script (PR 5 or later) in a subprocess,
+  before and after this one's (other, this, this, other): the same card, the
+  same call. To compare another substep chunk, edit ``kSubstepChunk``
+  (``csrc/rollout_modes.cuh``) and ``SUBSTEP_CHUNK`` in a copy and pass it
+  as ``--root``;
+* the batch (``batch_sweep``): the random rows at B = 4096 to 65536, ns a
+  substep, to show where the card fills;
+* latencies (``latency_probe``, ``csrc/latency_probe.cu``): cycles from
+  issue to a dependent issue of FADD, FMUL, FFMA, MUFU.RCP, F2I and I2F on
+  this card, each probe's chain checked in its SASS;
 * the SASS (``chain_sass``, ``experiments/sass.py``): for every open-loop
   rollout kernel and per-step physics kernel, the loop that holds the
   substeps, its instructions (all and on the fast path), its branches to the
   slow paths of divide, reciprocal, ``sinf``/``cosf`` and ``sqrtf``, and its
-  dependent chain in cycles (a latency table's estimate);
+  dependent chain in cycles, counted with the latencies measured here
+  (``chain_cycles_per_substep``) and with sass.py's table of estimates
+  (``chain_cycles_table``);
 * the chain bound (``chain_bound_ms``): T x n_substeps x the loop-carried
   chain of one substep of the per-step kernel (K1, K2, K3: one thread, one
-  substep an iteration) at the SM clock measured here, the least time any
-  design can take for one env's rollout.
+  substep an iteration) at the measured latencies and the SM clock measured
+  here: the time the per-step kernel's loop-carried chain takes for one
+  env's rollout, a floor for a kernel that runs those instructions.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -57,18 +67,27 @@ import time
 
 import torch
 
-from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel_cfg, _make
+from safe_control_gym_tpu_torch.experiments.benchmark_suite import (_kernel_cfg, _make,
+                                                                    hover_actions, hover_case)
 from safe_control_gym_tpu_torch.ops import _build
 from safe_control_gym_tpu_torch.ops import physics_kernels as pk
 from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
 from safe_control_gym_tpu_torch.utils.device import require_cuda
 
+MODULE = 'safe_control_gym_tpu_torch.experiments.kernel_first_check'
 B = 4096
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CHAIN_SYSTEMS = ('cartpole', 'quadrotor', 'quadrotor_3D')
 CHAIN_T = 4096
 CHAIN_BIG_B = 65536
 CHAIN_BLOCK_ENVS = 32
+# The batches of the batch sweep.
+SWEEP_B = (4096, 8192, 16384, 32768, 65536)
+# csrc/latency_probe.cu's probes, in the order of its enum Probe: the opcode
+# each chain link issues (checked in the SASS), and for a link of two
+# instructions the probe whose reading is taken off.
+LATENCY_PROBES = ('FADD', 'FMUL', 'FFMA', 'MUFU.RCP', 'F2I', 'I2F')
+PROBE_LESS = {'MUFU.RCP': 'FMUL'}
 # The library and kernels of each system: the open-loop rollout kernel (all
 # its instantiations) and the per-step kernel, whose loop is one substep.
 CHAIN_KERNELS = {
@@ -98,43 +117,6 @@ def sm_clock_ghz():
     of cycles; cycles over its event time."""
     cycles = 200_000_000
     return cycles / (_time_ms(lambda: torch.cuda._sleep(cycles), 2) * 1e6)
-
-
-def hover_case(system, device='cuda', tilt=0.0):
-    """(state, raw action, cfg, kwargs) of a hover replay of ``system``'s
-    whole-rollout kernel: the nominal state (the cartpole upright at rest),
-    the raw action that commands the hover thrust on every motor (0 on the
-    cartpole), no noise, no goal, and a time-limit reset back to the same
-    state. ``tilt`` sets the quads' angles, which then stay put: equal motors
-    give no torque. Without a tilt the angles stay exactly 0. Replay it with
-    ``actions = raw`` repeated over (T, B)."""
-    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
-    env = _make(system, False, device=device)
-    layout = _kernel(system)[2]
-    cfg = _kernel_cfg(system, env, False)
-    if system == 'cartpole':
-        hover = torch.zeros(4, device=device)
-        raw = torch.zeros(1, device=device)
-    else:
-        hover = torch.as_tensor(env._nominal_init_state(), dtype=torch.float32,
-                                device=device)
-        hover[[4] if system == 'quadrotor' else [6, 7, 8]] = tilt
-        u_goal = cfg[layout['U_GOAL']:layout['U_GOAL'] + env.action_dim]
-        raw = (u_goal - cfg[layout['DEN_B']]) / cfg[layout['DEN_A']]
-    nx = hover.numel()
-    cfg[layout['TOL_SQ']] = 0.0
-    cfg[layout['INIT_LO']:layout['INIT_LO'] + nx] = hover
-    cfg[layout['INIT_HI']:layout['INIT_HI'] + nx] = hover
-    kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP, draw_actions=False,
-              constrained=False, action_noise=False, randomized_reset=False)
-    env.close()
-    return hover, raw, cfg, kw
-
-
-def hover_actions(system, raw, T, B):
-    """The (T, B[, nu]) replay of the hover command ``raw``."""
-    actions = raw.expand(T, B, raw.numel()).contiguous()
-    return actions[..., 0].contiguous() if system == 'cartpole' else actions
 
 
 def chain_times(dev, B=B, T=CHAIN_T, big_B=CHAIN_BIG_B):
@@ -173,32 +155,25 @@ def chain_times(dev, B=B, T=CHAIN_T, big_B=CHAIN_BIG_B):
     return rows
 
 
-def substep_chunk() -> int:
-    """The substeps one unrolled chunk of the compiled-in count runs
-    (csrc/rollout_modes.cuh SCG_SUBSTEP_CHUNK, or this build's -D)."""
-    for flag in _build.NVCC_FLAGS:
-        if flag.startswith('-DSCG_SUBSTEP_CHUNK='):
-            return int(flag.split('=')[1])
-    text = open(os.path.join(_build.CSRC_DIR, 'rollout_modes.cuh')).read()
-    return int(re.search(r'#define SCG_SUBSTEP_CHUNK (\d+)', text).group(1))
-
-
 def _substeps_per_iteration(kernel_name: str) -> int:
     """Substeps one iteration of a rollout kernel's substep loop runs: a
-    chunk where the kernel is specialised to the compile-time count (a
-    template argument of 20 in the mangled name), else 1 (a loop over a
-    runtime count)."""
+    chunk (SUBSTEP_CHUNK) where the kernel is specialised to the compile-time
+    count (a template argument of 20 in the mangled name), else 1 (a loop
+    over a runtime count)."""
     m = re.search(r'rollout_kernelI((?:Li\d+E)+)', kernel_name)
     args = [int(a) for a in re.findall(r'Li(\d+)E', m.group(1))] if m else []
     n = rk.SPECIALISED_SUBSTEPS
-    return min(substep_chunk(), n) if n in args else 1
+    return min(rk.SUBSTEP_CHUNK, n) if n in args else 1
 
 
-def chain_sass(libs):
+def chain_sass(libs, table=None):
     """{system: {kernel: [loops]}} of the open-loop rollout kernels and the
     per-step kernels (``sass.loops``), with the loop that runs the substeps
     marked ``substep_loop`` and its figures per substep (an iteration runs a
-    chunk of them where the count is compiled in, else one)."""
+    chunk of them where the count is compiled in, else one): its chain in
+    cycles with the latency ``table`` (``calibrated_latency``;
+    ``chain_cycles_per_substep``) and with sass.py's estimates
+    (``chain_cycles_table``)."""
     from safe_control_gym_tpu_torch.experiments import sass
     text = {name: sass.disassemble(path) for name, path in libs.items()}
     funcs = {lib: sass.parse(t) for lib, t in text.items()}
@@ -209,6 +184,7 @@ def chain_sass(libs):
             if not (rollout in fname or advance in fname) or 'policy' in fname:
                 continue
             found = sass.loops(code)
+            measured = sass.loops(code, table)
             per_iter = _substeps_per_iteration(fname) if rollout in fname else 1
             # The substep loop: the innermost loop whose fast path reduces
             # angles (F2I) with no sinf/cosf slow path in or below it
@@ -221,10 +197,12 @@ def chain_sass(libs):
             inner = min(exact or library, key=lambda lp: lp.instructions, default=None)
             entry = dict(loops=[lp.summary() for lp in found], substeps_per_iteration=per_iter)
             if inner is not None:
+                same = measured[found.index(inner)]
                 entry['substep_loop'] = dict(
                     inner.summary(),
                     fast_path_per_substep=inner.fast_path / per_iter,
-                    chain_cycles_per_substep=inner.recurrence / per_iter,
+                    chain_cycles_per_substep=same.recurrence / per_iter,
+                    chain_cycles_table=inner.recurrence / per_iter,
                     slow_paths_per_substep={k: v / per_iter
                                             for k, v in inner.slow_paths.items()})
             rows[fname] = entry
@@ -232,25 +210,121 @@ def chain_sass(libs):
     return out
 
 
+def latency_probe(dev):
+    """({probe: cycles a chain link takes}, the long chain's links) on this
+    card (``csrc/latency_probe.cu``): the long chain's cycles less the short
+    one's, over the extra links."""
+    lib = _build.load_library('latency_probe')
+    p, i = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+    lib.scg_latency_probe.argtypes = [p, p, p, i, i, i, p]
+    lib.scg_latency_probe.restype = ctypes.c_int
+    values = torch.ones(34, device=dev)
+    values[32], values[33] = 1.0000001, 1e-7      # the multiplier and the addend
+    cycles = torch.zeros(2 * len(LATENCY_PROBES), dtype=torch.int64, device=dev)
+    out = torch.empty(32, device=dev)
+    n, short, long_ = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.scg_latency_probe(values.data_ptr(), cycles.data_ptr(), out.data_ptr(),
+                                ctypes.byref(n), ctypes.byref(short), ctypes.byref(long_),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, 'latency_probe')
+    if n.value != len(LATENCY_PROBES):
+        raise RuntimeError(f'csrc/latency_probe.cu runs {n.value} probes, expected '
+                           f'{len(LATENCY_PROBES)}')
+    c = cycles.cpu().tolist()
+    extra = long_.value - short.value
+    return ({name: (c[2 * k + 1] - c[2 * k]) / extra for k, name in enumerate(LATENCY_PROBES)},
+            long_.value)
+
+
+def probe_opcodes(lib_path, links):
+    """{probe: the opcode its chain is made of} from the SASS of
+    ``csrc/latency_probe.cu``'s long chains; raises where a chain does not
+    hold ``links`` instructions of its opcode (the compiler folded it)."""
+    from safe_control_gym_tpu_torch.experiments import sass
+    funcs = sass.parse(sass.disassemble(lib_path))
+    out = {}
+    for k, name in enumerate(LATENCY_PROBES):
+        code = max((c for f, c in funcs.items() if f'latency_probe_kernelILi{k}E' in f), key=len)
+        ops = [ins.op for ins in code if ins.op.startswith(name)]
+        if len(ops) < links:
+            raise RuntimeError(f'latency probe {name}: {len(ops)} of {links} links in its '
+                               'SASS; the chain was folded')
+        out[name] = max(set(ops), key=ops.count)
+    return out
+
+
+def calibrated_latency(cycles, opcodes):
+    """sass.LATENCY with each class that a probe measured replaced by the
+    largest reading of its probes (a probe in PROBE_LESS less the reading of
+    the other instruction in its link): the table the chain bound is
+    counted with."""
+    from safe_control_gym_tpu_torch.experiments import sass
+    table = dict(sass.LATENCY)
+    measured = {}
+    for name, cyc in cycles.items():
+        cls = sass.op_class(opcodes[name])
+        cyc -= cycles[PROBE_LESS[name]] if name in PROBE_LESS else 0.0
+        measured[cls] = max(measured.get(cls, 0.0), cyc)
+    table.update(measured)
+    return table
+
+
 def chain_bound_ms(cycles_per_substep, T, n_substeps, clock_ghz):
     """T x n_substeps x the chain's cycles at the clock, in ms."""
     return T * n_substeps * cycles_per_substep / (clock_ghz * 1e6)
 
 
-def reference_chain_cycles(sass_rows):
+def reference_chain_cycles(sass_rows, key='chain_cycles_per_substep'):
     """{system: loop-carried cycles of one substep} from the per-step kernel
     (one thread, one substep an iteration)."""
     out = {}
     for system, (_, _, advance) in CHAIN_KERNELS.items():
         for fname, entry in sass_rows[system].items():
             if advance in fname and 'substep_loop' in entry:
-                out[system] = entry['substep_loop']['chain_cycles_per_substep']
+                out[system] = entry['substep_loop'][key]
     return out
 
 
+def measured_chain(dev):
+    """The latency probe, its opcodes, the calibrated table and the SASS of
+    the substep loops counted with it: (probe rows, sass rows)."""
+    from safe_control_gym_tpu_torch.experiments import sass
+    libs = _build.build_all()
+    links, n_links = latency_probe(dev)
+    opcodes = probe_opcodes(libs['latency_probe'], n_links)
+    table = calibrated_latency(links, opcodes)
+    probes = [dict(probe=name, opcode=opcodes[name], link_cycles=links[name],
+                   cycles=table[sass.op_class(opcodes[name])],
+                   table_cycles=sass.latency(opcodes[name])) for name in LATENCY_PROBES]
+    return probes, chain_sass(libs, table)
+
+
+def batch_sweep(dev, T=CHAIN_T):
+    """[{system, B, T, ms, ns_per_substep}]: the main path's random
+    constrained rows at each batch of SWEEP_B."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    rows = []
+    for system in CHAIN_SYSTEMS:
+        kernel = bs._kernel(system)[1]
+        env = _make(system, True, device=dev)
+        cfg = _kernel_cfg(system, env, True)
+        n_sub = env.PYB_STEPS_PER_CTRL
+        kw = dict(n_substeps=n_sub, dt=env.PYB_TIMESTEP, constrained=True,
+                  randomized_reset=bool(env.RANDOMIZED_INIT))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for n in SWEEP_B:
+            s0 = env.func.reset_batch(gen, n)[0].state.contiguous()
+            ms = _time_ms(lambda: kernel(s0, cfg, 5, T, **kw))
+            rows.append(dict(system=system, B=n, T=T, ms=ms,
+                             ns_per_substep=ms * 1e6 / (T * n_sub)))
+            print(json.dumps({'batch_sweep': system, **rows[-1]}), flush=True)
+        env.close()
+    return rows
+
+
 def chain_report(dev, root=None):
-    """Step 0 of a redesign of the open loop: times, SASS and chain bound,
-    one JSON line each."""
+    """Step 0 of a redesign of the open loop: times, batch sweep, latencies,
+    SASS and chain bound, one JSON line each."""
     others = []
     if root:
         others.append(_times_of(root))
@@ -259,10 +333,11 @@ def chain_report(dev, root=None):
     times_again = chain_times(dev)
     if root:
         others.append(_times_of(root))
+    sweep = batch_sweep(dev)
     print(json.dumps({'exact_math': rk.exact_math_check(dev)}), flush=True)
-    libs = _build.build_all()
-    rows = chain_sass(libs)
-    ref = reference_chain_cycles(rows)
+    probes, rows = measured_chain(dev)
+    for row in probes:
+        print(json.dumps({'latency': row['probe'], **row}), flush=True)
     for system, kernels in rows.items():
         for fname, entry in kernels.items():
             print(json.dumps({'sass': system, 'kernel': fname, **entry}), flush=True)
@@ -273,23 +348,27 @@ def chain_report(dev, root=None):
                 timed.append({'chain_time': label, 'rep': rep, **row})
                 print(json.dumps(timed[-1]), flush=True)
     n_sub = rk.SPECIALISED_SUBSTEPS
-    for system, cycles in ref.items():
+    table = reference_chain_cycles(rows, 'chain_cycles_table')
+    for system, cycles in reference_chain_cycles(rows).items():
         print(json.dumps({'chain_bound': system, 'cycles_per_substep': cycles,
-                          'sm_clock_ghz': clock,
+                          'cycles_per_substep_table': table[system], 'sm_clock_ghz': clock,
                           'ms_T131072': chain_bound_ms(cycles, 131072, n_sub, clock),
                           'ms_T4096': chain_bound_ms(cycles, CHAIN_T, n_sub, clock)}),
               flush=True)
+    for row in probes:
+        print(f'summary latency {row["probe"]:>8} {row["opcode"]:>16} {row["cycles"]:7.2f} '
+              f'cycles (table {row["table_cycles"]})')
+    for r in sweep:
+        print(f'summary batch {r["system"]:>12} B={r["B"]:<6} {r["ns_per_substep"]:9.2f} '
+              'ns/substep')
     return timed
 
 
-def _times_of(root, chunk=None):
-    """``chain_times`` of the checkout at ``root``, in a subprocess that
-    imports that checkout's package; with ``chunk``, of this checkout's
-    kernels built with ``-DSCG_SUBSTEP_CHUNK=chunk`` into a build directory
-    of their own."""
-    extra = [] if chunk is None else ['--chunk-build', str(chunk)]
+def _times_of(root):
+    """``chain_times`` of the checkout at ``root`` (one that has
+    ``--chain-times``), run by that checkout's own copy of this script."""
     root = os.path.abspath(root)
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--chain-times', *extra],
+    proc = subprocess.run([sys.executable, '-m', MODULE, '--chain-times'],
                           cwd=root, env=dict(os.environ, PYTHONPATH=root),
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -297,22 +376,9 @@ def _times_of(root, chunk=None):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def chunk_report(chunks):
-    """ns a substep (``chain_times``) of the kernels built with each substep
-    chunk in ``chunks`` (rollout_modes.cuh), in turns: each chunk, then each
-    again in reverse order. Returns the rows."""
-    order = list(chunks) + list(reversed(chunks))
-    rows = []
-    for rep, chunk in enumerate(order):
-        for row in _times_of(ROOT, chunk):
-            rows.append({'chain_time': f'chunk {chunk}', 'rep': rep, **row})
-            print(json.dumps(rows[-1]), flush=True)
-    return rows
-
-
 def print_summary(rows):
-    """One line per (checkout or build, system, case) of the main cases:
-    the fewest ns a substep over the repeats."""
+    """One line per (checkout, system, case) of the main cases: the fewest
+    ns a substep over the repeats."""
     best = {}
     for r in rows:
         if r['case'] in ('random', 'hover', 'hover_tilted', 'random_big_batch'):
@@ -394,25 +460,14 @@ def main():
                         help='only measure the open loop\'s serial chain (see above)')
     parser.add_argument('--root', default=None,
                         help='with --chain: also time the kernels of this checkout')
-    parser.add_argument('--chunks', default=None,
-                        help='with --chain: also time builds with these substep chunks, '
-                             'e.g. 20,5,4')
     parser.add_argument('--chain-times', action='store_true', help=argparse.SUPPRESS)
-    parser.add_argument('--chunk-build', type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     dev = require_cuda('cuda')
     if args.chain_times:
-        if args.chunk_build is not None:
-            _build.BUILD_DIR = os.path.join(_build.BUILD_DIR, f'chunk{args.chunk_build}')
-            _build.NVCC_FLAGS = [*_build.NVCC_FLAGS, f'-DSCG_SUBSTEP_CHUNK={args.chunk_build}']
-            _build.build_all()
         print(json.dumps(chain_times(dev)))
         return
     if args.chain:
-        timed = chain_report(dev, args.root)
-        if args.chunks:
-            timed += chunk_report([int(c) for c in args.chunks.split(',')])
-        print_summary(timed)
+        print_summary(chain_report(dev, args.root))
         print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                               '--format=csv,noheader'], capture_output=True,
                              text=True).stdout)

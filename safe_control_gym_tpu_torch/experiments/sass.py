@@ -16,8 +16,10 @@ fix-up routine, ``sqrtf``'s likewise, the Payne-Hanek reduction that
 fast path, which an iteration runs when no operand is special.
 
 The dependent chain is counted on the fast path with a latency table of
-Hopper's pipes (``LATENCY``: estimates of fixed pipe latencies, not
-measurements of this card). ``critical`` is the longest dependent path of
+Hopper's pipes: ``LATENCY`` holds estimates of fixed pipe latencies, not
+measurements; ``loops(code, table)`` takes another table, such as one whose
+classes ``csrc/latency_probe.cu`` measured on the card
+(``kernel_first_check.calibrated_latency``). ``critical`` is the longest dependent path of
 one iteration; ``recurrence`` the growth of that path from two iterations
 to three laid end to end, the cycles an iteration adds to the chain that
 runs through the loop's registers, however the compiler moves a value
@@ -33,7 +35,7 @@ import shutil
 import subprocess
 from dataclasses import dataclass, field
 
-__all__ = ['Instr', 'Loop', 'LATENCY', 'latency', 'disassemble', 'parse', 'loops']
+__all__ = ['Instr', 'Loop', 'LATENCY', 'op_class', 'latency', 'disassemble', 'parse', 'loops']
 
 # Cycles from issue until a dependent instruction may issue (estimates).
 LATENCY = {
@@ -59,32 +61,37 @@ _PRED_ONLY = {'ISETP', 'FSETP', 'DSETP', 'HSETP2', 'FCHK', 'PLOP3', 'PSETP', 'UI
 _REG = re.compile(r'(?<![\w.])(!?)(U?R\d+|U?P\d|URZ|RZ|UPT|PT)((?:\.\w+)*)')
 
 
-def latency(op: str) -> int:
-    """The LATENCY of an opcode (its name with modifiers)."""
+def op_class(op: str) -> str:
+    """The LATENCY class of an opcode (its name with modifiers)."""
     base = op.split('.')[0]
     if base in _CONTROL or base in _STORES:
-        return LATENCY['control']
+        return 'control'
     if base == 'MUFU':
-        return LATENCY['mufu']
+        return 'mufu'
     if base in ('F2I', 'I2F', 'F2F', 'FRND'):
-        return LATENCY['convert']
+        return 'convert'
     if base in ('DADD', 'DMUL', 'DFMA', 'DSETP', 'DMNMX'):
-        return LATENCY['fp64']
+        return 'fp64'
     if base == 'SHFL':
-        return LATENCY['shfl']
+        return 'shfl'
     if base in ('LDS', 'LDSM'):
-        return LATENCY['shared']
+        return 'shared'
     if base == 'LDL':
-        return LATENCY['local']
+        return 'local'
     if base in ('LDG', 'LD', 'ATOM', 'ATOMG', 'LDGSTS'):
-        return LATENCY['global']
+        return 'global'
     if base in ('LDC', 'ULDC', 'S2R', 'S2UR', 'CS2R'):
-        return LATENCY['constant']
+        return 'constant'
     if base == 'FCHK':
-        return LATENCY['check']
+        return 'check'
     if base in ('POPC', 'FLO', 'BREV'):
-        return LATENCY['bits']
-    return LATENCY['alu']
+        return 'bits'
+    return 'alu'
+
+
+def latency(op: str, table=None) -> int:
+    """The latency of an opcode in ``table`` (default LATENCY)."""
+    return (table or LATENCY)[op_class(op)]
 
 
 @dataclass
@@ -225,8 +232,8 @@ class Loop:
     mufu: int
     shuffles: int
     converts: int              # F2I on the fast path (sin/cos reductions)
-    recurrence: int            # cycles an iteration adds to the loop-carried chain
-    critical: int              # cycles, the longest path of one iteration
+    recurrence: float          # cycles an iteration adds to the loop-carried chain
+    critical: float            # cycles, the longest path of one iteration
     contains_sincos: bool
 
     def summary(self) -> dict:
@@ -293,22 +300,23 @@ def _slow_regions(code, lo, hi):
     return regions
 
 
-def _longest(path) -> int:
+def _longest(path, table=None) -> float:
     """Longest dependent path over ``path`` (program order), from the
     registers' values at its top."""
     ready = {}        # register -> cycle its current value is ready
     best = 0
     for ins in path:
-        t = max((ready.get(src, 0) for src in ins.srcs), default=0) + latency(ins.op)
+        t = max((ready.get(src, 0) for src in ins.srcs), default=0) + latency(ins.op, table)
         for d in ins.dests:
             ready[d] = t
         best = max(best, t)
     return best
 
 
-def loops(code) -> list:
+def loops(code, table=None) -> list:
     """Every loop of a function (code between a backward branch and its
-    target), innermost last among loops that share a head."""
+    target), innermost last among loops that share a head; chains counted
+    with ``table`` (default LATENCY)."""
     index = {ins.addr: k for k, ins in enumerate(code)}
     out = []
     for i, ins in enumerate(code):
@@ -327,13 +335,15 @@ def loops(code) -> list:
                 kinds[kind] = kinds.get(kind, 0) + 1
             slow.update(range(a, b + 1))
         path = [code[k] for k in range(lo, hi) if k not in slow]
-        critical = _longest(path)
+        critical = _longest(path, table)
         out.append(Loop(
             start=code[lo].addr, end=ins.addr, instructions=hi - lo,
             fast_path=len(path), slow_paths=kinds,
             mufu=sum(p.base == 'MUFU' for p in path),
             shuffles=sum(p.base == 'SHFL' for p in path),
             converts=sum(p.base == 'F2I' for p in path),
-            recurrence=_longest(path * 3) - _longest(path * 2), critical=critical,
+            recurrence=_longest(path * 3, table) - _longest(path * 2, table),
+            critical=critical,
             contains_sincos=kinds.get('sincos', 0) > 0))
     return out
+

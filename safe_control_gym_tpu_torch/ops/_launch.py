@@ -4,16 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ['check_tensor', 'block_size', 'TEAM_LANES', 'TEAM_ENVS', 'team_width',
-           'open_loop_launch']
-
-# The 3D open loop's team (csrc/quad_kernels.cu kTeamLanes, kTeamEnvs): lanes
-# an env, and envs a block of TEAM_LANES * TEAM_ENVS threads.
-TEAM_LANES = 4
-TEAM_ENVS = 32
-# Warp schedulers an SM (Hopper: four, each issuing one warp's instruction a
-# cycle).
-SCHEDULERS_PER_SM = 4
+__all__ = ['check_tensor', 'block_size']
 
 
 def check_tensor(t, name: str, shape, device: torch.device) -> None:
@@ -38,22 +29,3 @@ def block_size(n: int, device: torch.device) -> int:
     while threads > 32 and (n + threads - 1) // threads < n_sm:
         threads //= 2
     return threads
-
-
-def team_width(n: int, n_sm: int) -> int:
-    """Lanes an env for the 3D open loop at ``n`` envs on ``n_sm`` SMs:
-    TEAM_LANES where one lane an env leaves some of the card's warp
-    schedulers without a warp (so a team's extra lanes run on schedulers that
-    would idle), else 1 (where every scheduler already has a warp, a team's
-    repeated work only costs issue slots)."""
-    warps = -(-n // 32)
-    return TEAM_LANES if warps < SCHEDULERS_PER_SM * n_sm else 1
-
-
-def open_loop_launch(n: int, device: torch.device, team: bool = False):
-    """(threads a block, lanes an env) of an open-loop rollout launch of
-    ``n`` envs: a team (``team_width``, in blocks of TEAM_ENVS envs) where
-    ``team`` allows one, else one thread an env in blocks of ``block_size``."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    lanes = team_width(n, n_sm) if team else 1
-    return (TEAM_LANES * TEAM_ENVS if lanes > 1 else block_size(n, device)), lanes

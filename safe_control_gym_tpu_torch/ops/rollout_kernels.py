@@ -77,7 +77,7 @@ import numpy as np
 import torch
 
 from safe_control_gym_tpu_torch.ops import _build
-from safe_control_gym_tpu_torch.ops._launch import check_tensor, open_loop_launch
+from safe_control_gym_tpu_torch.ops._launch import block_size, check_tensor
 from safe_control_gym_tpu_torch.ops.physics_kernels import (cartpole_substeps,
                                                              quad2d_substeps,
                                                              quad3d_substeps)
@@ -88,7 +88,7 @@ __all__ = ['cartpole_rollout', 'cartpole_rollout_plain', 'cartpole_rollout_cfg',
            'pack_policy_params', 'check_policy_obs', 'policy_mean_plain',
            'philox4x32_10', 'philox_uniform4', 'standard_normal',
            'standard_normal_pair', 'wrap_angle', 'exact_math_check',
-           'CARTPOLE_CFG_LEN', 'QUAD_CFG_LEN', 'SPECIALISED_SUBSTEPS']
+           'CARTPOLE_CFG_LEN', 'QUAD_CFG_LEN', 'SPECIALISED_SUBSTEPS', 'SUBSTEP_CHUNK']
 
 _TWO_PI = 6.283185307179586
 _INV_2PI = 1.0 / _TWO_PI
@@ -165,13 +165,16 @@ _POLICY_W2_RING_ROWS = (32, 16, 8)
 # and the committed models' configs. Other counts run a loop over the runtime
 # count.
 SPECIALISED_SUBSTEPS = 20
+# The substeps one unrolled chunk of that loop runs (csrc/rollout_modes.cuh
+# kSubstepChunk).
+SUBSTEP_CHUNK = 5
 
 
 class PolicyLaunch(NamedTuple):
     """The launch arguments of a rollout kernel: the packed actor's pointer
     and widths, and the block geometry (envs and threads a block, W2's rows
     and columns a tile, dynamic shared memory bytes). Open loop: no actor,
-    ``threads`` a block and ``lanes`` an env (``_launch.open_loop_launch``)."""
+    ``threads`` a block of one thread per env."""
     ptr: object
     h1: int
     h2: int
@@ -181,7 +184,6 @@ class PolicyLaunch(NamedTuple):
     w2_rows: int
     w2_cols: int
     smem: int
-    lanes: int = 1
 
 
 def _policy_smem_bytes(nx, nu, h1, h2, w2_rows, w2_cols):
@@ -378,16 +380,13 @@ def _policy_mode(policy_params, policy_activation, draw_actions, actions, name):
     return True
 
 
-def _policy_launch(policy_params, nx, nu, B, dev, name, team=False) -> PolicyLaunch:
-    """The :class:`PolicyLaunch` of a rollout launch. Open loop: one thread
-    an env, or where ``team`` (the 3D quad) a team of lanes an env at a batch
-    too small to give every warp scheduler a warp. In policy mode: a block
+def _policy_launch(policy_params, nx, nu, B, dev, name) -> PolicyLaunch:
+    """The :class:`PolicyLaunch` of a rollout launch. In policy mode: a block
     of 256 threads for 32 envs, hidden widths in multiples of 8, and the
     actor's shared memory within what a block may use (any H2 fits, with H1
     up to 1264 at nx = 12 and 1544 at nx = 4); raises ValueError otherwise."""
     if policy_params is None:
-        threads, lanes = open_loop_launch(B, dev, team)
-        return PolicyLaunch(None, 0, 0, 0, 0, threads, 0, 0, 0, lanes)
+        return PolicyLaunch(None, 0, 0, 0, 0, block_size(B, dev), 0, 0, 0)
     pp = policy_params
     if pp.nx != nx or pp.nu_out < nu:
         raise ValueError(f'{name}: actor {pp.nx} -> {pp.nu_out} does not fit '
@@ -866,7 +865,7 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
     if m['tracking']:
         n_goal = int(x_goal.shape[0])
         check_tensor(x_goal, 'x_goal', (n_goal, nx), dev)
-    pl = _policy_launch(policy_params, nx, nu, B, dev, name, team=quad_type == 3)
+    pl = _policy_launch(policy_params, nx, nu, B, dev, name)
     state = torch.empty_like(state0)
     ctrl_step, reward_sum, done_count, violation_count = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(4))
@@ -878,7 +877,7 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
         state.data_ptr(), ctrl_step.data_ptr(), reward_sum.data_ptr(),
         done_count.data_ptr(), violation_count.data_ptr(), B, int(n_steps),
         int(n_substeps), float(dt), int(seed) & _MASK32, n_goal, pl.h1, pl.h2, pl.nu_out,
-        float(clip_obs), _flags(m), pl.threads, pl.lanes, pl.envs, pl.w2_rows, pl.w2_cols,
+        float(clip_obs), _flags(m), pl.threads, pl.envs, pl.w2_rows, pl.w2_cols,
         pl.smem, torch.cuda.current_stream(dev).cuda_stream)
     wrapper.launches += 1
     wrapper.policy_launches += policy
@@ -941,7 +940,7 @@ def _quad_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.scg_quad_rollout.argtypes = [
             i, p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, ctypes.c_uint,
-            i, i, i, i, ctypes.c_float, i, i, i, i, i, i, i, p]
+            i, i, i, i, ctypes.c_float, i, i, i, i, i, i, p]
         lib.scg_quad_rollout.restype = ctypes.c_int
         lib.scg_exact_math_check.argtypes = [p, p]
         lib.scg_exact_math_check.restype = ctypes.c_int

@@ -291,22 +291,23 @@ def test_policy_mode_and_replay_without_actions_raise():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('case', ['benchmark', 'ragged_4109', 'substeps_7', 'hover'])
+@pytest.mark.parametrize('case', ['benchmark', 'ragged_4109', 'substeps_7', 'hover',
+                                  'large_batch_65536'])
 @pytest.mark.parametrize('system', ['quadrotor', 'quadrotor_3D'])
 def test_cuda_kernel_matches_plain_version(system, case):
     """The CUDA kernel equals its plain version bit for bit: the constrained
-    benchmark config at B=4096 (3D: a team of 4 lanes an env), a batch that
-    is no multiple of a warp's 8 teams, the general path over a runtime
-    substep count, and a hover start (3D: zero numerators in the quotients)."""
+    benchmark config at B=4096, a batch that is no multiple of a warp, the
+    general path over a runtime substep count, a hover start (3D: zero
+    numerators in the quotients), and a batch in blocks of 256 threads."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    from safe_control_gym_tpu_torch.experiments.kernel_first_check import (hover_actions,
-                                                                            hover_case)
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import (hover_actions,
+                                                                        hover_case)
     dev = torch.device('cuda')
     te = tmake('quadrotor', device=dev, **_env_kwargs(system, True))
     cfg = trk.quad_rollout_cfg(te)
     cfg[trk._Q['NOISE_STD']] = 0.1
-    B, T = (4109 if case == 'ragged_4109' else 4096), 64
+    B, T = {'ragged_4109': 4109, 'large_batch_65536': 65536}.get(case, 4096), 64
     states, _ = te.func.reset_batch(torch.Generator(device=dev).manual_seed(0), B)
     s0 = states.state.contiguous()
     kw = dict(n_substeps=7 if case == 'substeps_7' else 20, dt=1e-3, constrained=True)

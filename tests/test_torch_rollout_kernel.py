@@ -271,8 +271,8 @@ def test_cuda_kernel_matches_plain_version(case):
     general path over a runtime substep count, and a hover start."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    from safe_control_gym_tpu_torch.experiments.kernel_first_check import (hover_actions,
-                                                                            hover_case)
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import (hover_actions,
+                                                                        hover_case)
     dev = torch.device('cuda')
     te = tmake('cartpole', device=dev, **_env_kwargs('cartpole', True))
     cfg = trk.cartpole_rollout_cfg(te)
