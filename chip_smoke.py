@@ -9,7 +9,17 @@ Phases, one JSON line each:
   1. card      the card's name and power limit (nvidia-smi);
   2. build     nvcc of every csrc/*.cu, one process per source, timed;
   3. k1, k2, k3  the per-step physics kernels (cartpole_advance, quad2d_advance,
-               quad3d_advance) against their plain versions at B=4096;
+               quad3d_advance) against their plain versions, bit for bit, on
+               every case of benchmark_suite.physics_cases: random inputs
+               with tab or world forces at B=4096, a hover (angles exactly
+               0), angles past sinf's fast range on every 97th env (the
+               step's library recompute), B=4109 (a ragged last warp), four
+               warps an SM (B=16896 on 132 SMs) and n_substeps 7 (the
+               runtime-count instantiation); each row's time primed and back
+               to back, the launch floor (an empty kernel on the same grid),
+               B=65536, and ptxas's registers and spills of each
+               instantiation; the kernels line adds each row's chain bound
+               (20 x one substep's chain from the phase chain);
   4. k4, k5    the whole-rollout kernels (cartpole_rollout; quad2d_rollout and
                quad3d_rollout) against their plain versions, bit for bit, at
                B=4096 in three modes (replay, tracking with quadratic cost,
@@ -22,8 +32,8 @@ Phases, one JSON line each:
                the substep loops, ns a substep on random and hover rows and
                at B=65536, the latencies of the chain's instructions on this
                card (csrc/latency_probe.cu), the chain cycles of a substep at
-               those latencies and the SM clock (kernel_first_check --chain);
-               the open-loop rows of the kernels line gain chain_bound_ms,
+               those latencies and the SM clock (experiments/chain.py); the
+               open-loop rows of the kernels line gain chain_bound_ms,
                lanes_per_env and these times;
   5. main_path make(..., device='cuda') -> measure_batched (per-step path, K1,
                K2, K3) plain and constrained, and measure_rollout_kernel
@@ -76,6 +86,7 @@ PEAK_OPS_PER_S = 67e12
 
 B = 4096
 B_RAGGED = B + 13      # the policy mode's last tile of 32 envs partly filled
+B_BIG = 65536          # the per-step kernels' large-batch time
 CHUNKED_WIDTHS = (384, 1000)   # an actor whose H2 the policy kernel runs in chunks
 T_CHUNKED = 40
 N_SUB, DT = 20, 1e-3
@@ -171,50 +182,58 @@ def time_ms(fn, reps, primed=True):
     return e0.elapsed_time(e1) / reps
 
 
-def _physics_args(system, dev):
-    """Inputs of the per-step physics kernel at B envs, drawn from a seed."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
-    if system == 'cartpole':
-        return (u((B, 4), -0.3, 0.3), u((B,), -10.0, 10.0), u((B, 2), -0.5, 0.5),
-                torch.tensor([0.1, 1.0, 0.5, 9.8], device=dev))
-    if system == 'quadrotor':
-        states = torch.stack([u((B,), -1, 1), u((B,), -0.5, 0.5), u((B,), 0.5, 1.5),
-                              u((B,), -0.5, 0.5), u((B,), -1, 1), u((B,), -3, 3)], 1)
-        return (states.contiguous(), u((B,), 0.05, 0.2), u((B,), 0.05, 0.2),
-                u((B, 2), -0.01, 0.01), torch.tensor([0.027, 1.4e-5, 0.0397, 9.8], device=dev))
-    states = u((B, 12), -0.5, 0.5)
-    states[:, 4] += 1.0
-    states[:, 6:9] = u((B, 3), -0.8, 0.8)
-    hover = 0.027 * 9.8 / 4
-    return (states.contiguous(), u((B, 4), 0.5 * hover, 1.5 * hover), u((B,), -1e-6, 1e-6),
-            u((B, 3), -0.01, 0.01),
-            torch.tensor([0.027, 1.4e-5, 1.4e-5, 2.17e-5, 0.0397, 9.8], device=dev))
+def _registers(lib, kernel):
+    """{instantiation: ptxas's registers, stack and spills} of ``kernel``'s
+    instantiations in ``lib`` (from its build's ptxas report)."""
+    from safe_control_gym_tpu_torch.experiments import chain, sass
+    from safe_control_gym_tpu_torch.ops import _build
+    with open(_build.ptxas_log(lib)) as f:
+        usage = sass.ptxas_resources(f.read())
+    return {f'{kernel}<{",".join(map(str, chain.template_args(fname)))}>': row
+            for fname, row in usage.items() if f'{kernel}I' in fname or f'{kernel}E' in fname}
 
 
 def check_physics(system, dev):
-    """K1, K2 or K3 against its plain version, timed."""
+    """K1, K2 or K3 against its plain version on every per-step case, bit for
+    bit (the plain version repeats the kernel's float ops, and the exact
+    substeps give the library's results), timed on the random case."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.experiments import chain
     from safe_control_gym_tpu_torch.ops import physics_kernels as pk
     meta = PHYSICS[system]
     kernel, plain = getattr(pk, meta['name']), getattr(pk, meta['name'] + '_plain')
-    args = (*_physics_args(system, dev), N_SUB, DT)
-    err = float((kernel(*args) - plain(*args)).abs().max())
-    torch.cuda.synchronize()
-    if not err <= 1e-5:
-        raise RuntimeError(f'{meta["id"]} disagrees with its plain version: max abs err {err}')
+    cases = {}
+    for case, args in bs.physics_cases(system, dev, B, N_SUB, DT):
+        err = float((kernel(*args) - plain(*args)).abs().max())
+        torch.cuda.synchronize()
+        cases[case] = dict(B=args[0].shape[0], n_substeps=args[-2], max_abs_err=err)
+        emit(meta['id'].lower(), kernel=meta['name'], case=case, tol=0.0, **cases[case])
+        if err != 0.0:
+            raise RuntimeError(f'{meta["id"]} disagrees with its plain version on {case}: '
+                               f'max abs err {err} (must be 0.0)')
+    args = (*bs.physics_args(system, dev, B), N_SUB, DT)
     ms = time_ms(lambda: kernel(*args), 200)
     # The plain version's hundreds of launches a call are its cost: timed unprimed.
     plain_ms = time_ms(lambda: plain(*args), 5, primed=False)
     back_to_back_ms = time_ms(lambda: kernel(*args), 200, primed=False)
+    launch_floor_ms = time_ms(chain.launch_floor(B, dev), 200)
+    big = (*bs.physics_args(system, dev, B_BIG), N_SUB, DT)
+    big_batch_ms = time_ms(lambda: kernel(*big), 200)
+    del big
     n_bytes = sum(a.numel() * 4 for a in args[:-2]) + B * NX[system] * 4
     b_ms, b_by = bound_ms(n_bytes, B * (N_SUB * OPS_SUBSTEP[system] + OPS_INVARIANT[system]))
+    lib = os.path.basename(meta['source'])[:-3]
     row = dict(name=meta['name'], route='cuda', source=meta['source'],
-               replaces=meta['replaces'], max_abs_err=err, ms=ms, kernel_ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               replaces=meta['replaces'], max_abs_err=max(c['max_abs_err'] for c in
+                                                          cases.values()),
+               ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None,
                library_note='no single PyTorch call computes n_substeps of this update',
-               back_to_back_ms=back_to_back_ms, shape=f'B={B} n_substeps={N_SUB}',
-               id=meta['id'])
-    emit(meta['id'].lower(), tol=1e-5, **row)
+               back_to_back_ms=back_to_back_ms, launch_floor_ms=launch_floor_ms,
+               big_batch_ms=big_batch_ms, big_batch_shape=f'B={B_BIG} n_substeps={N_SUB}',
+               registers=_registers(lib, meta['name'] + '_kernel'), cases=cases,
+               shape=f'B={B} n_substeps={N_SUB}', id=meta['id'])
+    emit(meta['id'].lower(), **{k: v for k, v in row.items() if k != 'cases'})
     return row
 
 
@@ -369,21 +388,22 @@ def check_rollout(system, dev, length=None):
 
 
 def chain(dev):
-    """The open loop's serial chain (``kernel_first_check --chain``): the
-    exact-math check (every result of csrc/exact_math.cuh equal to the
-    library's), ns a substep on random and hover rows at B, one block and
-    B=65536, the latencies of the chain's instruction classes on this card
-    (csrc/latency_probe.cu), the SASS of the substep loops, the chain cycles
-    of one substep (the per-step kernels' loops) at those latencies, and the
-    SM clock under load."""
-    from safe_control_gym_tpu_torch.experiments import kernel_first_check as kfc
+    """The open loop's serial chain (``experiments/chain.py``, as
+    ``kernel_first_check --chain`` prints it): the exact-math check (every
+    result of csrc/exact_math.cuh equal to the library's), ns a substep on
+    random and hover rows at B, one block and B=65536, the latencies of the
+    chain's instruction classes on this card (csrc/latency_probe.cu), the SASS
+    of the substep loops, the chain cycles of one substep (the per-step
+    kernels' runtime-count loop) at those latencies, and the SM clock under
+    load."""
+    from safe_control_gym_tpu_torch.experiments import chain as ch
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     exact = rk.exact_math_check(dev)
     emit('chain', exact_math=exact)
     if any(differ for _, differ in exact.values()) or not all(n for n, _ in exact.values()):
         raise RuntimeError(f'csrc/exact_math.cuh differs from the CUDA math library: {exact}')
-    clock = kfc.sm_clock_ghz()
-    probes, sass_rows = kfc.measured_chain(dev)
+    clock = ch.sm_clock_ghz()
+    probes, sass_rows, _ = ch.measured_chain(dev)
     for row in probes:
         emit('chain', latency=row)
         if not 1.0 <= row['cycles'] <= 200.0:
@@ -392,11 +412,14 @@ def chain(dev):
         for fname, entry in kernels.items():
             if 'substep_loop' in entry:
                 emit('chain', system=system, kernel=fname, substep_loop=entry['substep_loop'])
-    times = kfc.chain_times(dev)
+    cycles = ch.reference_chain_cycles(sass_rows)
+    if set(cycles) != set(SYSTEMS):
+        raise RuntimeError(f'no reference substep loop for {set(SYSTEMS) - set(cycles)}')
+    times = ch.chain_times(dev)
     for row in times:
         emit('chain', **row)
-    return dict(clock_ghz=clock, cycles=kfc.reference_chain_cycles(sass_rows),
-                table_cycles=kfc.reference_chain_cycles(sass_rows, 'chain_cycles_table'),
+    return dict(clock_ghz=clock, cycles=cycles,
+                table_cycles=ch.reference_chain_cycles(sass_rows, 'chain_cycles_table'),
                 latency={row['probe']: row['cycles'] for row in probes},
                 times={(r['system'], r['case']): r for r in times})
 
@@ -850,7 +873,14 @@ def main():
             policy_rollout_bytes(system, kw, bench['T']),
             policy_rollout_ops(system, kw, bench['T'], bench['mean_done_count'] * B))[0]
     for system in SYSTEMS:
-        physics[system]['launches'] = launches[PHYSICS[system]['name']]
+        # The per-step kernel's chain bound: n_substeps x one substep's
+        # loop-carried chain at the latencies and SM clock of this run.
+        row = physics[system]
+        row['launches'] = launches[PHYSICS[system]['name']]
+        row['chain_cycles_per_substep'] = serial['cycles'][system]
+        row['sm_clock_ghz'] = serial['clock_ghz']
+        row['chain_bound_ms'] = serial['cycles'][system] * N_SUB / (serial['clock_ghz'] * 1e6)
+        row['share_of_chain_bound'] = row['chain_bound_ms'] / row['ms']
         row = rollout[system]
         row['launches'] = launches[ROLLOUT[system]['name']]
         main_row = rows[f'rollout {system} constrained=True tracking=False']

@@ -13,13 +13,13 @@
 // each thread owns one env and keeps its state in registers: K1 for
 // n_substeps, K4 for all T steps (the loop over T replaces the TPU grid
 // over steps; nothing is carried between blocks). K1 moves 44 bytes per
-// env and is bound by its launch at the batch sizes of the env step; K4
-// reads its inputs once and writes its outputs once, and at B=4096 it is
-// bound by the dependent chain of one env (T x n_substeps substeps of
-// sin/cos, a reciprocal and a dozen multiplies and adds, each needing the
-// last), not by FLOP/s or bytes.
+// env and is bound by its launch and one env's chain of 20 substeps at the
+// batch sizes of the env step; K4 reads its inputs once and writes its
+// outputs once, and at B=4096 it is bound by the dependent chain of one env
+// (T x n_substeps substeps of sin/cos, a reciprocal and a dozen multiplies
+// and adds, each needing the last), not by FLOP/s or bytes.
 //
-// K4's open loop, cartpole_rollout_kernel<N>. The chain is coupled (the
+// The substeps of K1 and of K4's open loop. The chain is coupled (the
 // angular acceleration needs sin and cos of the angle, and the reciprocal of
 // a term in cos^2), so the work is to keep everything else off it. With the
 // library's sinf, cosf and reciprocal each ending in a branch to its slow
@@ -28,13 +28,15 @@
 // exact_math.cuh's branch-free copies (one range reduction for sin and cos,
 // the step recomputed with the library's functions where an operand was
 // special); N = 20 substeps compiled in, run in unrolled chunks
-// (rollout_modes.cuh), N = 0 for other counts; the next step's draw of rows
-// 0-3 in the same basic block as the substeps, so its Philox rounds fill
-// the issue slots the chain leaves idle; the reset rows drawn only for an
-// env that is done. In policy mode the actor's float32 products dominate
-// each step, and a separate kernel, cartpole_policy_rollout_kernel, runs
-// them with the whole block (policy_mlp.cuh) and the library's substeps; both
-// kernels share the action, reward, done and reset code (cartpole_step).
+// (rollout_modes.cuh), N = 0 for other counts. K1, cartpole_advance_kernel<N>,
+// runs them with the env's tab force, K4's open loop with none. K4's open
+// loop, cartpole_rollout_kernel<N>, also draws the next step's rows 0-3 in the
+// same basic block as the substeps, so its Philox rounds fill the issue slots
+// the chain leaves idle, and the reset rows only for an env that is done. In
+// policy mode the actor's float32 products dominate each step, and a separate
+// kernel, cartpole_policy_rollout_kernel, runs them with the whole block
+// (policy_mlp.cuh) and the library's substeps; both kernels share the action,
+// reward, done and reset code (cartpole_step).
 //
 // Numerics. Every expression follows the plain PyTorch version
 // (ops/physics_kernels.py, ops/rollout_kernels.py) operation for
@@ -76,7 +78,7 @@ using scg::sincos_exact;
 using scg::standard_normal;
 using scg::uniform4;
 
-// The substep count the open loop compiles in (ops/rollout_kernels.py
+// The substep count K1 and the open loop compile in (ops/rollout_kernels.py
 // SPECIALISED_SUBSTEPS); other counts loop over the runtime count.
 constexpr int kSpecialisedSubsteps = 20;
 
@@ -124,24 +126,23 @@ __device__ __forceinline__ void cartpole_substeps(
   }
 }
 
-// cartpole_substeps without the tab force, every float op as there, but
-// with exact_math.cuh's branch-free sin/cos and reciprocal: N > 0 substeps
-// compiled in (in unrolled chunks, rollout_modes.cuh), or n if N == 0. Returns false where an
-// operand was special; the caller then recomputes the step with
-// cartpole_substeps.
+// cartpole_substeps, every float op as there, but with exact_math.cuh's
+// branch-free sin/cos and reciprocal: N > 0 substeps compiled in (in unrolled
+// chunks, rollout_modes.cuh), or n if N == 0. Returns false where an operand
+// was special; the caller then recomputes the step with cartpole_substeps.
 template <int N>
 __device__ __forceinline__ bool cartpole_substeps_exact(float& x, float& xd, float& th,
-                                                        float& thd, float force, float m,
-                                                        float M, float L, float g, int n,
-                                                        float dt) {
+                                                        float& thd, float force, float fx,
+                                                        float fz, float m, float M, float L,
+                                                        float g, int n, float dt) {
   const float Mm = m + M;
   const float ml = m * L;
   const float a11 = Mm;
   const float a22 = kFourThirds * m * L * L;
-  const float f1 = force + 0.0f;
+  const float f1 = force + fx;
   const float mgL = m * g * L;
-  const float fxL = 0.0f * L;
-  const float fzL = 0.0f * L;
+  const float fxL = fx * L;
+  const float fzL = fz * L;
   const float a11a22 = a11 * a22;
   bool ok = true;
   auto substep = [&]() {
@@ -166,17 +167,30 @@ __device__ __forceinline__ bool cartpole_substeps_exact(float& x, float& xd, flo
   return ok;
 }
 
+// K1: one thread an env, N substeps compiled in or n_substeps if N == 0. The
+// loaded state stays in registers; where cartpole_substeps_exact reports a
+// special operand, the step is recomputed from it with the library's
+// cartpole_substeps, so every result is the library's.
+template <int N>
 __global__ void cartpole_advance_kernel(
     const float* __restrict__ states, const float* __restrict__ forces,
     const float* __restrict__ tab, const float* __restrict__ params,
     float* __restrict__ out, int B, int n_substeps, float dt) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  float x = states[4 * b + 0], xd = states[4 * b + 1];
-  float th = states[4 * b + 2], thd = states[4 * b + 3];
-  cartpole_substeps(x, xd, th, thd, forces[b], tab[2 * b + 0],
-                    tab[2 * b + 1], params[0], params[1], params[2],
-                    params[3], n_substeps, dt);
+  const float x0 = states[4 * b + 0], xd0 = states[4 * b + 1];
+  const float th0 = states[4 * b + 2], thd0 = states[4 * b + 3];
+  const float force = forces[b], fx = tab[2 * b + 0], fz = tab[2 * b + 1];
+  const float m = params[0], M = params[1], L = params[2], g = params[3];
+  float x = x0, xd = xd0, th = th0, thd = thd0;
+  if (!cartpole_substeps_exact<N>(x, xd, th, thd, force, fx, fz, m, M, L, g, n_substeps,
+                                  dt)) {
+    x = x0;
+    xd = xd0;
+    th = th0;
+    thd = thd0;
+    cartpole_substeps(x, xd, th, thd, force, fx, fz, m, M, L, g, n_substeps, dt);
+  }
   out[4 * b + 0] = x;
   out[4 * b + 1] = xd;
   out[4 * b + 2] = th;
@@ -353,8 +367,9 @@ __global__ void cartpole_rollout_kernel(
     float next[4];
     uniform4(seed, b, t + 1, 0u, next);
     const CartEnv start = e;
-    if (!cartpole_substeps_exact<N>(e.x, e.xd, e.th, e.thd, force, c[POLE_MASS],
-                                    c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt)) {
+    if (!cartpole_substeps_exact<N>(e.x, e.xd, e.th, e.thd, force, 0.0f, 0.0f,
+                                    c[POLE_MASS], c[CART_MASS], c[POLE_LEN], c[GRAVITY],
+                                    n_substeps, dt)) {
       e = start;
       cartpole_substeps(e.x, e.xd, e.th, e.thd, force, 0.0f, 0.0f, c[POLE_MASS],
                         c[CART_MASS], c[POLE_LEN], c[GRAVITY], n_substeps, dt);
@@ -439,8 +454,9 @@ int scg_cartpole_advance(const void* states, const void* forces,
                          int B, int n_substeps, float dt, int threads,
                          void* stream) {
   if (B > 0) {
-    cartpole_advance_kernel<<<(B + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
+    auto kernel = n_substeps == kSpecialisedSubsteps
+        ? cartpole_advance_kernel<kSpecialisedSubsteps> : cartpole_advance_kernel<0>;
+    kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (const float*)states, (const float*)forces, (const float*)tab,
         (const float*)params, (float*)out, B, n_substeps, dt);
   }

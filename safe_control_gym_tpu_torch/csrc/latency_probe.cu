@@ -15,6 +15,10 @@
 // difference over the extra links removes the cost of the clock reads and
 // the loop's entry. The result's values mean nothing; only their dependence
 // counts. kernel_first_check checks each chain's opcodes in the SASS.
+//
+// The launch floor: an empty kernel on a given grid, which chip_smoke.py
+// times as it times the per-step kernels K1-K3 on the same grid, so that
+// their time can be read against what a launch alone costs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,6 +68,8 @@ void launch_pair(const float* in, long long* cycles, float* out, cudaStream_t st
   latency_probe_kernel<OP, kLongChain><<<1, 32, 0, stream>>>(in, cycles + 2 * OP + 1, out);
 }
 
+__global__ void noop_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -90,6 +96,12 @@ int scg_latency_probe(const void* in, void* cycles, void* out, int* n_probes,
   launch_pair<P_RCP>(i, cy, o, s);
   launch_pair<P_F2I>(i, cy, o, s);
   launch_pair<P_I2F>(i, cy, o, s);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel on blocks x threads. Returns cudaGetLastError().
+int scg_noop(int blocks, int threads, void* stream) {
+  noop_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

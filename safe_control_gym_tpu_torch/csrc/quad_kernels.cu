@@ -18,17 +18,19 @@
 // carried between blocks). K5 is templated on the quad type, so nx and nu
 // are compile-time and the state arrays unroll into registers; its cfg
 // vector sits in shared memory, read at one address by every thread. K2
-// moves 64 bytes per env and K3 128; both are bound by their launch at the
-// env step's batch sizes. K5 reads its inputs once and writes its outputs
-// once; at B=4096 it is bound by how fast one warp runs one env's T x
-// n_substeps substeps, not by FLOP/s or bytes.
+// moves 64 bytes per env and K3 128; both are bound by their launch and one
+// env's chain of n_substeps at the env step's batch sizes. K5 reads its
+// inputs once and writes its outputs once; at B=4096 it is bound by how fast
+// one warp runs one env's T x n_substeps substeps, not by FLOP/s or bytes.
 //
-// K5's open loop, quad_rollout_kernel<QT, N>. What bounded it: every
-// library sinf, cosf and divide ends in a branch to its slow path, and a warp
-// stalls at each branch while ptxas schedules each call on its own, so one
-// warp an SM ran a 3D substep (232 instructions, nine such branches) in
-// about 960 cycles, and on exact hover the divides' zero numerators took
-// their slow path (kernel_first_check --chain). What the design does:
+// K3, quad3d_advance_kernel<N>, and K5's open loop, quad_rollout_kernel<QT,
+// N>, run the exact substeps below (K3 with the env's world force, the open
+// loop with none). What bounded them: every library sinf, cosf and divide
+// ends in a branch to its slow path, and a warp stalls at each branch while
+// ptxas schedules each call on its own, so one warp an SM ran a 3D substep
+// (232 instructions, nine such branches) in about 960 cycles, and on exact
+// hover the divides' zero numerators took their slow path
+// (kernel_first_check --chain). What the design does:
 // - exact_math.cuh's branch-free copies of the library's fast paths, and the
 //   step recomputed with the library's own functions where an operand was
 //   special: a chunk of substeps (rollout_modes.cuh) is one basic block, so
@@ -37,10 +39,11 @@
 //   models' 1000 Hz under 50 Hz); N = 0, any other count, loops over it;
 // - 2D: in each chunk the angles first, then their sin/cos pairs, then the x
 //   and z sums, so the pairs overlap.
-// What bounds it now: one warp's issue and latency along a step, since one
-// thread owns one env. A team of four lanes an env (each lane one sin/cos
-// pair or quotient, __shfl_sync to the others) was measured slower than one
-// lane at every batch from 4096 to 65536, in 2D and in 3D: the shuffles
+// K2 still runs the library's substeps.
+// What bounds the open loop now: one warp's issue and latency along a step,
+// since one thread owns one env. A team of four lanes an env (each lane one
+// sin/cos pair or quotient, __shfl_sync to the others) was measured slower
+// than one lane at every batch from 4096 to 65536, in 2D and in 3D: the shuffles
 // lengthen the chain one warp already runs at its own pace, and the step's
 // rest runs on every lane. Up to about four warps an SM (B = 16384 on 132
 // SMs) a substep takes the same time as at B=4096.
@@ -92,7 +95,7 @@ using scg::uniform4;
 
 constexpr float kSqrt2 = 1.41421356237309515f;  // float32(sqrt(2))
 
-// The substep count the open loop compiles in (ops/rollout_kernels.py
+// The substep count K3 and the open loop compile in (ops/rollout_kernels.py
 // SPECIALISED_SUBSTEPS).
 constexpr int kSpecialisedSubsteps = 20;
 
@@ -189,8 +192,9 @@ __device__ __forceinline__ void quad3d_substeps(
   s[6] = phi; s[7] = th; s[8] = psi; s[9] = p; s[10] = q; s[11] = r;
 }
 
-// The open loop's substeps: quad2d_substeps and quad3d_substeps with no
-// world force, every float op as there, but with exact_math.cuh's
+// The exact substeps: quad2d_substeps (without the world force: the open loop
+// has none) and quad3d_substeps (with it: K3 carries the env's, the open loop
+// passes zeros), every float op as there, but with exact_math.cuh's
 // branch-free sin/cos and quotients. They return false where an operand was
 // special; the caller then recomputes the step with the functions above.
 // N > 0 is the substep count compiled in (run in unrolled chunks,
@@ -255,7 +259,7 @@ __device__ __forceinline__ bool quad2d_substeps_exact(float (&s)[6], float T1, f
   return ok;
 }
 
-// The 3D terms that depend on the cfg alone, hoisted out of the rollout
+// The 3D terms that depend on the parameters alone, hoisted out of the rollout
 // (quad3d_substeps computes the same ones on every call).
 struct Quad3DConsts {
   float l_sq2, inv_m, c_p, c_q, c_r, Ixx, Iyy, Izz, g;
@@ -271,7 +275,8 @@ __device__ __forceinline__ Quad3DConsts quad3d_consts(float m, float Ixx, float 
 // independent of each other, and a chunk of substeps is one basic block.
 template <int N>
 __device__ __forceinline__ bool quad3d_substeps_exact(float (&s)[12], float f0, float f1,
-                                                      float f2, float f3, float zt,
+                                                      float f2, float f3, float zt, float fx,
+                                                      float fy, float fz,
                                                       const Quad3DConsts& k, int n, float dt) {
   float x = s[0], xd = s[1], y = s[2], yd = s[3], z = s[4], zd = s[5];
   float phi = s[6], th = s[7], psi = s[8], p = s[9], q = s[10], r = s[11];
@@ -279,9 +284,9 @@ __device__ __forceinline__ bool quad3d_substeps_exact(float (&s)[12], float f0, 
   const float Mx = k.l_sq2 * (f0 + f1 - f2 - f3);
   const float My = k.l_sq2 * (-f0 + f1 + f2 - f3);
   const float tom = total * k.inv_m;
-  const float fxm = 0.0f * k.inv_m;
-  const float fym = 0.0f * k.inv_m;
-  const float fzm_g = 0.0f * k.inv_m - k.g;
+  const float fxm = fx * k.inv_m;
+  const float fym = fy * k.inv_m;
+  const float fzm_g = fz * k.inv_m - k.g;
   float Mx_I, My_I, zt_I;
   bool ok = div_exact(Mx, k.Ixx, Mx_I);
   ok &= div_exact(My, k.Iyy, My_I);
@@ -343,6 +348,11 @@ __global__ void quad2d_advance_kernel(
   o[0] = x; o[1] = xd; o[2] = z; o[3] = zd; o[4] = th; o[5] = thd;
 }
 
+// K3: one thread an env, N substeps compiled in or n_substeps if N == 0. The
+// loaded state stays in registers; where quad3d_substeps_exact reports a
+// special operand, the step is recomputed from it with the library's
+// quad3d_substeps, so every result is the library's.
+template <int N>
 __global__ void quad3d_advance_kernel(
     const float* __restrict__ states, const float* __restrict__ forces,
     const float* __restrict__ z_torque, const float* __restrict__ dyn,
@@ -350,13 +360,25 @@ __global__ void quad3d_advance_kernel(
     int n_substeps, float dt) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  float s[12];
+  float start[12], s[12];
 #pragma unroll
-  for (int k = 0; k < 12; ++k) s[k] = states[12 * b + k];
-  const float* f = forces + 4 * b;
-  quad3d_substeps(s, f[0], f[1], f[2], f[3], z_torque[b], dyn[3 * b + 0],
-                  dyn[3 * b + 1], dyn[3 * b + 2], params[0], params[1],
-                  params[2], params[3], params[4], params[5], n_substeps, dt);
+  for (int k = 0; k < 12; ++k) {
+    start[k] = states[12 * b + k];
+    s[k] = start[k];
+  }
+  const float f0 = forces[4 * b + 0], f1 = forces[4 * b + 1];
+  const float f2 = forces[4 * b + 2], f3 = forces[4 * b + 3];
+  const float zt = z_torque[b];
+  const float fx = dyn[3 * b + 0], fy = dyn[3 * b + 1], fz = dyn[3 * b + 2];
+  const float m = params[0], Ixx = params[1], Iyy = params[2], Izz = params[3];
+  const float L = params[4], g = params[5];
+  const Quad3DConsts k3 = quad3d_consts(m, Ixx, Iyy, Izz, L, g);
+  if (!quad3d_substeps_exact<N>(s, f0, f1, f2, f3, zt, fx, fy, fz, k3, n_substeps, dt)) {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) s[k] = start[k];
+    quad3d_substeps(s, f0, f1, f2, f3, zt, fx, fy, fz, m, Ixx, Iyy, Izz, L, g, n_substeps,
+                    dt);
+  }
 #pragma unroll
   for (int k = 0; k < 12; ++k) out[12 * b + k] = s[k];
 }
@@ -608,7 +630,8 @@ __device__ __forceinline__ void quad_open_step(const Modes& m, const float* c,
       tq[d] = c[KM] * rpm[d] * rpm[d];
     }
     const float zt = -tq[0] + tq[1] - tq[2] + tq[3];
-    if (!quad3d_substeps_exact<N>(s, f[0], f[1], f[2], f[3], zt, k3, n_substeps, dt)) {
+    if (!quad3d_substeps_exact<N>(s, f[0], f[1], f[2], f[3], zt, 0.0f, 0.0f, 0.0f, k3,
+                                  n_substeps, dt)) {
 #pragma unroll
       for (int k = 0; k < NX; ++k) s[k] = start[k];
       quad3d_substeps(s, f[0], f[1], f[2], f[3], zt, 0.0f, 0.0f, 0.0f, c[MASS], c[IXX],
@@ -821,11 +844,11 @@ int scg_quad3d_advance(const void* states, const void* forces,
                        const void* params, void* out, int B, int n_substeps,
                        float dt, int threads, void* stream) {
   if (B > 0) {
-    quad3d_advance_kernel<<<(B + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
+    auto kernel = n_substeps == kSpecialisedSubsteps
+        ? quad3d_advance_kernel<kSpecialisedSubsteps> : quad3d_advance_kernel<0>;
+    kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (const float*)states, (const float*)forces, (const float*)z_torque,
-        (const float*)dyn, (const float*)params, (float*)out, B, n_substeps,
-        dt);
+        (const float*)dyn, (const float*)params, (float*)out, B, n_substeps, dt);
   }
   return (int)cudaGetLastError();
 }

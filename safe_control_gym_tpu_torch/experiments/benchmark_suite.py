@@ -29,7 +29,7 @@ from safe_control_gym_tpu_torch.utils.registration import make
 __all__ = ['CONSTRAINTS', 'DISTURBANCES', '_env_kwargs', 'kernel_covers',
            'measure_rollout_kernel', 'measure_closed_loop_kernel',
            'measure_batched', 'per_step_rollout', 'sanity_check', 'hover_case',
-           'hover_actions']
+           'hover_actions', 'physics_args', 'physics_cases']
 
 CONSTRAINTS = [{'constraint_form': 'default_constraint',
                 'constrained_variable': 'state'},
@@ -135,6 +135,78 @@ def hover_actions(system, raw, T, B):
     """The (T, B[, nu]) replay of the hover command ``raw``."""
     actions = raw.expand(T, B, raw.numel()).contiguous()
     return actions[..., 0].contiguous() if system == 'cartpole' else actions
+
+
+# The per-step kernels' parameter vectors (envs/dynamics.py QuadParams and
+# the cartpole's defaults): [pole_mass, cart_mass, pole_length, gravity];
+# [mass, Iyy, arm_length, gravity]; [mass, Ixx, Iyy, Izz, arm_length, gravity].
+PHYSICS_PARAMS = {'cartpole': [0.1, 1.0, 0.5, 9.8], 'quadrotor': [0.027, 1.4e-5, 0.0397, 9.8],
+                  'quadrotor_3D': [0.027, 1.4e-5, 1.4e-5, 2.17e-5, 0.0397, 9.8]}
+# The angle each per-step case puts past sinf's fast range.
+PHYSICS_ANGLE_DIM = {'cartpole': 2, 'quadrotor': 4, 'quadrotor_3D': 7}
+
+
+def physics_args(system, device='cuda', batch=4096, seed=0, hover=False):
+    """The tensor inputs of ``system``'s per-step physics kernel (K1, K2 or
+    K3) for ``batch`` envs, drawn from ``seed``: tilted and moving states,
+    forces about the hover thrust and nonzero tab or world forces. With
+    ``hover`` the angles and rates are 0, every motor gives the hover thrust
+    (the cartpole's force is 0) and no tab or world force acts, so the angles
+    stay exactly 0 over the step."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(shape, generator=g, device=device)
+    params = torch.tensor(PHYSICS_PARAMS[system], device=device)
+    if system == 'cartpole':
+        states, force, tab = u((batch, 4), -0.3, 0.3), u((batch,), -10.0, 10.0), \
+            u((batch, 2), -0.5, 0.5)
+        if hover:
+            states[:, 2:] = 0.0
+            force.zero_()
+            tab.zero_()
+        return states, force, tab, params
+    if system == 'quadrotor':
+        states = torch.stack([u((batch,), -1, 1), u((batch,), -0.5, 0.5), u((batch,), 0.5, 1.5),
+                              u((batch,), -0.5, 0.5), u((batch,), -1, 1), u((batch,), -3, 3)], 1)
+        t1, t2, dyn = u((batch,), 0.05, 0.2), u((batch,), 0.05, 0.2), u((batch, 2), -0.01, 0.01)
+        if hover:
+            states[:, 4:] = 0.0
+            t1.fill_(0.027 * 9.8 / 2)
+            t2.fill_(0.027 * 9.8 / 2)
+            dyn.zero_()
+        return states.contiguous(), t1, t2, dyn, params
+    states = u((batch, 12), -0.5, 0.5)
+    states[:, 4] += 1.0
+    states[:, 6:9] = u((batch, 3), -0.8, 0.8)
+    thrust = 0.027 * 9.8 / 4
+    forces, zt, dyn = u((batch, 4), 0.5 * thrust, 1.5 * thrust), u((batch,), -1e-6, 1e-6), \
+        u((batch, 3), -0.01, 0.01)
+    if hover:
+        states[:, 6:] = 0.0
+        forces.fill_(thrust)
+        zt.zero_()
+        dyn.zero_()
+    return states.contiguous(), forces, zt, dyn, params
+
+
+def physics_cases(system, device='cuda', batch=4096, n_substeps=20, dt=1e-3):
+    """[(name, args)] of the checked per-step cases of ``system``, ``args``
+    the kernel's arguments with n_substeps and dt: random inputs at ``batch``
+    (the 20 substeps compiled in), a hover (angles exactly 0: zero
+    numerators in 3D's quotients), angles past sinf's fast range on every
+    97th env (the step's library recompute), a ragged last warp (``batch`` +
+    13), four warps an SM (blocks of 128 threads) and 7 substeps over the
+    same control step (the runtime-count instantiation)."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    step = (n_substeps, dt)
+    random = physics_args(system, device, batch)
+    special = [a.clone() for a in random]
+    special[0][::97, PHYSICS_ANGLE_DIM[system]] = 2.0e5
+    return [('random', (*random, *step)),
+            ('hover', (*physics_args(system, device, batch, seed=1, hover=True), *step)),
+            ('angle_past_sinf_fast_range', (*special, *step)),
+            ('ragged_batch', (*physics_args(system, device, batch + 13, seed=2), *step)),
+            ('four_warps_an_sm', (*physics_args(system, device, 32 * 4 * n_sm, seed=3), *step)),
+            ('substeps_7', (*random, 7, n_substeps * dt / 7))]
 
 
 def sanity_check(out, t_steps, label):

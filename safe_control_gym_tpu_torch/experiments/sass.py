@@ -19,7 +19,7 @@ The dependent chain is counted on the fast path with a latency table of
 Hopper's pipes: ``LATENCY`` holds estimates of fixed pipe latencies, not
 measurements; ``loops(code, table)`` takes another table, such as one whose
 classes ``csrc/latency_probe.cu`` measured on the card
-(``kernel_first_check.calibrated_latency``). ``critical`` is the longest dependent path of
+(``chain.calibrated_latency``). ``critical`` is the longest dependent path of
 one iteration; ``recurrence`` the growth of that path from two iterations
 to three laid end to end, the cycles an iteration adds to the chain that
 runs through the loop's registers, however the compiler moves a value
@@ -35,7 +35,8 @@ import shutil
 import subprocess
 from dataclasses import dataclass, field
 
-__all__ = ['Instr', 'Loop', 'LATENCY', 'op_class', 'latency', 'disassemble', 'parse', 'loops']
+__all__ = ['Instr', 'Loop', 'LATENCY', 'op_class', 'latency', 'disassemble', 'parse', 'loops',
+           'ptxas_resources']
 
 # Cycles from issue until a dependent instruction may issue (estimates).
 LATENCY = {
@@ -347,3 +348,29 @@ def loops(code, table=None) -> list:
             contains_sincos=kinds.get('sincos', 0) > 0))
     return out
 
+
+def ptxas_resources(text: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads}} of every entry
+    function in ``nvcc -Xptxas -v``'s report (``ops/_build.py`` ``ptxas_log``),
+    bytes for the last three."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and props in out:
+            out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and entry is not None:
+            out[entry]['registers'] = int(m.group(1))
+    return out

@@ -3,8 +3,10 @@
 The kernels have a plain C interface (no PyTorch headers), so one ``nvcc``
 call per source takes seconds. The shared libraries go into ``csrc/build/``
 (listed in ``.gitignore``) on first use and are rebuilt when their source or
-any shared header ``csrc/*.cuh`` is newer. Nothing is built or imported when this module is imported: the CPU
-tests import every module of the package on a machine without ``nvcc``.
+any shared header ``csrc/*.cuh`` is newer; beside each library, ``ptxas``'s
+report of every kernel's registers, stack and spills (``ptxas_log``).
+Nothing is built or imported when this module is imported: the CPU tests
+import every module of the package on a machine without ``nvcc``.
 
     lib = load_library('cartpole_kernels')   # csrc/cartpole_kernels.cu
     lib = load_library('quad_kernels')       # csrc/quad_kernels.cu
@@ -21,7 +23,7 @@ import subprocess
 import threading
 
 __all__ = ['CSRC_DIR', 'BUILD_DIR', 'NVCC_FLAGS', 'sources', 'is_stale',
-           'build_all', 'load_library', 'check']
+           'build_all', 'load_library', 'ptxas_log', 'check']
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         'csrc')
@@ -29,9 +31,10 @@ BUILD_DIR = os.path.join(CSRC_DIR, 'build')
 
 # Hopper with its architecture-specific features; no fast-math intrinsics and
 # no fused multiply-add contraction, so every float operation rounds as the
-# plain PyTorch version's separate elementwise ops do.
+# plain PyTorch version's separate elementwise ops do. ``-Xptxas -v`` only
+# reports each kernel's registers, stack and spills (kept by ``_build``).
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '--fmad=false', '-shared', '-Xcompiler', '-fPIC']
+              '--fmad=false', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -50,6 +53,12 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f'lib{name}.so')
+
+
+def ptxas_log(name: str) -> str:
+    """The path of ``ptxas -v``'s report from the last build of ``lib<name>.so``
+    (``experiments/sass.py`` ``ptxas_resources`` reads it)."""
+    return os.path.join(BUILD_DIR, f'lib{name}.ptxas.txt')
 
 
 def sources(name: str, csrc_dir: str = CSRC_DIR) -> list:
@@ -81,6 +90,8 @@ def _build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed for {src} (exit {proc.returncode}):\n'
                            f'{proc.stdout}\n{proc.stderr}')
+    with open(ptxas_log(name), 'w') as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

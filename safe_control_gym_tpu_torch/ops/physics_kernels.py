@@ -18,7 +18,11 @@ layout, not part of the function).
 Bound on the card: per env, K1 moves 44 bytes, K2 64 and K3 128, against
 20 substeps of one to three sin/cos pairs and 20-60 other float ops. At the
 env step's batch sizes each is bound by its launch and the latency of its
-serial chain, not by bytes or FLOP/s.
+serial chain, not by bytes or FLOP/s. So K1 and K3 run ``csrc/exact_math.cuh``'s
+branch-free copies of the library's sin/cos, reciprocal and divide, with 20
+substeps compiled in (the runtime count otherwise) and the step recomputed
+with the library's functions where an operand is special: their results are
+the library's, bit for bit.
 
 The wrappers ``cartpole_advance``, ``quad2d_advance`` and ``quad3d_advance``
 are the entry points: a CPU batch goes to the ``*_plain`` version, a CUDA

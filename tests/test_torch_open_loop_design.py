@@ -2,7 +2,7 @@
 ``ops/rollout_kernels.py``, ``csrc/*.cu``): the threads a block as a
 function of the batch and the SM count, the launch shape the wrappers pass,
 the constants the CUDA sources state by hand against the Python ones, what
-``kernel_first_check --chain`` reads from kernel names and latency probes,
+``experiments/chain.py`` reads from kernel names and latency probes,
 and the hover replay it times (its angles must stay exactly where they
 start, so that 3D's quotients see zero numerators throughout)."""
 
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
-from safe_control_gym_tpu_torch.experiments import kernel_first_check as kfc
+from safe_control_gym_tpu_torch.experiments import chain
 from safe_control_gym_tpu_torch.experiments import sass
 from safe_control_gym_tpu_torch.experiments.benchmark_suite import hover_actions, hover_case
 from safe_control_gym_tpu_torch.ops import _launch
@@ -69,13 +69,13 @@ def test_open_loop_constants_match_the_kernel_sources():
 
 
 def test_latency_probe_list_matches_the_kernel_source():
-    """kernel_first_check reads csrc/latency_probe.cu's results in the order
+    """chain.latency_probe reads csrc/latency_probe.cu's results in the order
     of its enum Probe."""
     text = open(os.path.join(CSRC, 'latency_probe.cu')).read()
     enum = re.search(r'enum Probe \{([^}]*)\}', text).group(1)
     names = [n.strip()[2:] for n in enum.split(',')][:-1]
     assert names == ['FADD', 'FMUL', 'FFMA', 'RCP', 'F2I', 'I2F']
-    assert [p.split('.')[-1] for p in kfc.LATENCY_PROBES] == names
+    assert [p.split('.')[-1] for p in chain.LATENCY_PROBES] == names
 
 
 @pytest.mark.parametrize('name,per_iteration', [
@@ -85,12 +85,13 @@ def test_latency_probe_list_matches_the_kernel_source():
     ('_ZN12_GLOBAL__N_119quad_rollout_kernelILi2ELi0EEEvPKfS2_', 1),
     ('_ZN12_GLOBAL__N_123cartpole_rollout_kernelILi20EEEvPKfS2_', 5),
     ('_ZN12_GLOBAL__N_123cartpole_rollout_kernelILi0EEEvPKfS2_', 1),
-    ('_ZN12_GLOBAL__N_121quad3d_advance_kernelEPKfS1_S1_S1_S1_Pfiif', 1),
+    ('_ZN12_GLOBAL__N_121quad3d_advance_kernelILi20EEEvPKfS2_S2_S2_S2_Pfiif', 5),
+    ('_ZN12_GLOBAL__N_121quad3d_advance_kernelILi0EEEvPKfS2_S2_S2_S2_Pfiif', 1),
 ])
 def test_substeps_an_iteration_of_each_open_loop_kernel(name, per_iteration):
     """A loop iteration of the compiled-in count runs a chunk; with a runtime
-    count, one substep."""
-    assert kfc._substeps_per_iteration(name) == per_iteration
+    count, one substep. The per-step kernels K1 and K3 are templated alike."""
+    assert chain.substeps_per_iteration(name) == per_iteration
 
 
 def test_calibrated_latency_replaces_the_measured_classes():
@@ -100,7 +101,7 @@ def test_calibrated_latency_replaces_the_measured_classes():
               'I2F': 4.0}
     opcodes = {'FADD': 'FADD', 'FMUL': 'FMUL', 'FFMA': 'FFMA', 'MUFU.RCP': 'MUFU.RCP',
                'F2I': 'F2I.NTZ', 'I2F': 'I2FP.F32.S32'}
-    table = kfc.calibrated_latency(cycles, opcodes)
+    table = chain.calibrated_latency(cycles, opcodes)
     assert table['alu'] == 4.5 and table['mufu'] == 23.0 and table['convert'] == 17.0
     # Classes no probe measured keep the estimates.
     assert table['global'] == sass.LATENCY['global'] and table['fp64'] == sass.LATENCY['fp64']
