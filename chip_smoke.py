@@ -19,7 +19,9 @@ Phases, one JSON line each:
                to back, the launch floor (an empty kernel on the same grid),
                B=65536, and ptxas's registers and spills of each
                instantiation; the kernels line adds each row's chain bound
-               (20 x one substep's chain from the phase chain);
+               (20 x one substep's chain from the phase chain) and issue
+               floor (20 x one substep's fast-path instructions at one a
+               cycle);
   4. k4, k5    the whole-rollout kernels (cartpole_rollout; quad2d_rollout and
                quad3d_rollout) against their plain versions, bit for bit, at
                B=4096 in three modes (replay, tracking with quadratic cost,
@@ -34,7 +36,7 @@ Phases, one JSON line each:
                card (csrc/latency_probe.cu), the chain cycles of a substep at
                those latencies and the SM clock (experiments/chain.py); the
                open-loop rows of the kernels line gain chain_bound_ms,
-               lanes_per_env and these times;
+               issue_floor_ms, lanes_per_env and these times;
   5. main_path make(..., device='cuda') -> measure_batched (per-step path, K1,
                K2, K3) plain and constrained, and measure_rollout_kernel
                (whole-rollout path, K4, K5) on the reference benchmark's rows,
@@ -415,10 +417,15 @@ def chain(dev):
     cycles = ch.reference_chain_cycles(sass_rows)
     if set(cycles) != set(SYSTEMS):
         raise RuntimeError(f'no reference substep loop for {set(SYSTEMS) - set(cycles)}')
+    fast_path = ch.compiled_in_fast_path(sass_rows)
+    emit('chain', compiled_in_fast_path_per_substep=fast_path)
+    if any(set(fast_path.get(s, {})) != {'advance', 'rollout'} for s in SYSTEMS):
+        raise RuntimeError(f'a substep loop compiled for {N_SUB} substeps is missing: '
+                           f'{fast_path}')
     times = ch.chain_times(dev)
     for row in times:
         emit('chain', **row)
-    return dict(clock_ghz=clock, cycles=cycles,
+    return dict(clock_ghz=clock, cycles=cycles, fast_path=fast_path,
                 table_cycles=ch.reference_chain_cycles(sass_rows, 'chain_cycles_table'),
                 latency={row['probe']: row['cycles'] for row in probes},
                 times={(r['system'], r['case']): r for r in times})
@@ -872,15 +879,23 @@ def main():
         row['main_path_bound_ms'] = bound_ms(
             policy_rollout_bytes(system, kw, bench['T']),
             policy_rollout_ops(system, kw, bench['T'], bench['mean_done_count'] * B))[0]
+    cycles_ms = lambda cycles: cycles / (serial['clock_ghz'] * 1e6)
     for system in SYSTEMS:
         # The per-step kernel's chain bound: n_substeps x one substep's
-        # loop-carried chain at the latencies and SM clock of this run.
+        # loop-carried chain at the latencies and SM clock of this run. Its
+        # issue floor: n_substeps x one substep's fast-path instructions (the
+        # instantiation for N_SUB) at one a cycle, what one warp an SM
+        # (B=4096) issues at best.
         row = physics[system]
         row['launches'] = launches[PHYSICS[system]['name']]
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
-        row['chain_bound_ms'] = serial['cycles'][system] * N_SUB / (serial['clock_ghz'] * 1e6)
+        row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)
         row['share_of_chain_bound'] = row['chain_bound_ms'] / row['ms']
+        row['fast_path_per_substep'] = serial['fast_path'][system]['advance']
+        row['issue_floor_ms'] = cycles_ms(row['fast_path_per_substep'] * N_SUB)
+        row['share_of_issue_floor'] = row['issue_floor_ms'] / row['ms']
+        row['floor_binds'] = 'issue' if row['issue_floor_ms'] > row['chain_bound_ms'] else 'chain'
         row = rollout[system]
         row['launches'] = launches[ROLLOUT[system]['name']]
         main_row = rows[f'rollout {system} constrained=True tracking=False']
@@ -900,8 +915,12 @@ def main():
         row['chain_latencies'] = serial['latency']
         row['chain_bound_by'] = 'latencies measured in this run (csrc/latency_probe.cu)'
         row['sm_clock_ghz'] = serial['clock_ghz']
-        row['chain_bound_ms'] = cycles * T_ROLLOUT * N_SUB / (serial['clock_ghz'] * 1e6)
+        row['chain_bound_ms'] = cycles_ms(cycles * T_ROLLOUT * N_SUB)
         row['share_of_chain_bound'] = row['chain_bound_ms'] / row['main_path_ms']
+        row['fast_path_per_substep'] = serial['fast_path'][system]['rollout']
+        row['issue_floor_ms'] = cycles_ms(row['fast_path_per_substep'] * T_ROLLOUT * N_SUB)
+        row['share_of_issue_floor'] = row['issue_floor_ms'] / row['main_path_ms']
+        row['floor_binds'] = 'issue' if row['issue_floor_ms'] > row['chain_bound_ms'] else 'chain'
         row['lanes_per_env'] = 1
         times = serial['times']
         for case in ('random', 'hover', 'hover_tilted'):

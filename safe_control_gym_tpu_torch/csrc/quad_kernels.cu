@@ -18,19 +18,20 @@
 // carried between blocks). K5 is templated on the quad type, so nx and nu
 // are compile-time and the state arrays unroll into registers; its cfg
 // vector sits in shared memory, read at one address by every thread. K2
-// moves 64 bytes per env and K3 128; both are bound by their launch and one
-// env's chain of n_substeps at the env step's batch sizes. K5 reads its
-// inputs once and writes its outputs once; at B=4096 it is bound by how fast
-// one warp runs one env's T x n_substeps substeps, not by FLOP/s or bytes.
+// moves 64 bytes per env and K3 128; both are bound by their launch and by
+// how fast one warp an SM runs one env's n_substeps at the env step's batch
+// sizes. K5 reads its inputs once and writes its outputs once; at B=4096 it
+// is bound by how fast one warp runs one env's T x n_substeps substeps, not
+// by FLOP/s or bytes.
 //
-// K3, quad3d_advance_kernel<N>, and K5's open loop, quad_rollout_kernel<QT,
-// N>, run the exact substeps below (K3 with the env's world force, the open
-// loop with none). What bounded them: every library sinf, cosf and divide
-// ends in a branch to its slow path, and a warp stalls at each branch while
-// ptxas schedules each call on its own, so one warp an SM ran a 3D substep
-// (232 instructions, nine such branches) in about 960 cycles, and on exact
-// hover the divides' zero numerators took their slow path
-// (kernel_first_check --chain). What the design does:
+// K2, quad2d_advance_kernel<N>, K3, quad3d_advance_kernel<N>, and K5's open
+// loop, quad_rollout_kernel<QT, N>, run the exact substeps below (K2 and K3
+// with the env's world force, the open loop with none). What bounded them:
+// every library sinf, cosf and divide ends in a branch to its slow path, and
+// a warp stalls at each branch while ptxas schedules each call on its own, so
+// one warp an SM ran a 3D substep (232 instructions, nine such branches) in
+// about 960 cycles, and on exact hover the divides' zero numerators took
+// their slow path (kernel_first_check --chain). What the design does:
 // - exact_math.cuh's branch-free copies of the library's fast paths, and the
 //   step recomputed with the library's own functions where an operand was
 //   special: a chunk of substeps (rollout_modes.cuh) is one basic block, so
@@ -39,7 +40,6 @@
 //   models' 1000 Hz under 50 Hz); N = 0, any other count, loops over it;
 // - 2D: in each chunk the angles first, then their sin/cos pairs, then the x
 //   and z sums, so the pairs overlap.
-// K2 still runs the library's substeps.
 // What bounds the open loop now: one warp's issue and latency along a step,
 // since one thread owns one env. A team of four lanes an env (each lane one
 // sin/cos pair or quotient, __shfl_sync to the others) was measured slower
@@ -95,8 +95,8 @@ using scg::uniform4;
 
 constexpr float kSqrt2 = 1.41421356237309515f;  // float32(sqrt(2))
 
-// The substep count K3 and the open loop compile in (ops/rollout_kernels.py
-// SPECIALISED_SUBSTEPS).
+// The substep count K2, K3 and the open loop compile in
+// (ops/rollout_kernels.py SPECIALISED_SUBSTEPS).
 constexpr int kSpecialisedSubsteps = 20;
 
 // cfg vector layout (ops/rollout_kernels.py _Q), sized for the 3D case; the
@@ -192,11 +192,11 @@ __device__ __forceinline__ void quad3d_substeps(
   s[6] = phi; s[7] = th; s[8] = psi; s[9] = p; s[10] = q; s[11] = r;
 }
 
-// The exact substeps: quad2d_substeps (without the world force: the open loop
-// has none) and quad3d_substeps (with it: K3 carries the env's, the open loop
-// passes zeros), every float op as there, but with exact_math.cuh's
-// branch-free sin/cos and quotients. They return false where an operand was
-// special; the caller then recomputes the step with the functions above.
+// The exact substeps: quad2d_substeps and quad3d_substeps (with the world
+// force: K2 and K3 carry the env's, the open loop passes zeros), every float
+// op as there, but with exact_math.cuh's branch-free sin/cos and quotients.
+// They return false where an operand was special; the caller then recomputes
+// the step with the functions above.
 // N > 0 is the substep count compiled in (run in unrolled chunks,
 // rollout_modes.cuh); N == 0 loops over the runtime count n.
 //
@@ -207,15 +207,15 @@ __device__ __forceinline__ void quad3d_substeps(
 // order as in quad2d_substeps.
 template <int N>
 __device__ __forceinline__ bool quad2d_substeps_exact(float (&s)[6], float T1, float T2,
-                                                      float m, float Iyy, float L, float g,
-                                                      int n, float dt) {
+                                                      float fx, float fz, float m, float Iyy,
+                                                      float L, float g, int n, float dt) {
   float th_dd, inv_m;
   bool ok = div_exact(L * (T2 - T1), Iyy, th_dd);
   ok &= div_exact(th_dd, kSqrt2, th_dd);
   ok &= rcp_exact(m, inv_m);
   const float tom = (T1 + T2) * inv_m;
-  const float fxm = 0.0f * inv_m;
-  const float fzm_g = 0.0f * inv_m - g;
+  const float fxm = fx * inv_m;
+  const float fzm_g = fz * inv_m - g;
   float x = s[0], xd = s[1], z = s[2], zd = s[3], th = s[4], thd = s[5];
   if constexpr (N > 0) {
     constexpr int C = scg::kSubstepChunk < N ? scg::kSubstepChunk : N;
@@ -332,6 +332,11 @@ __device__ __forceinline__ bool quad3d_substeps_exact(float (&s)[12], float f0, 
   return ok;
 }
 
+// K2 and K3: one thread an env, N substeps compiled in or n_substeps if
+// N == 0. The loaded state stays in registers; where the exact substeps report
+// a special operand, the step is recomputed from it with the library's
+// quad2d_substeps / quad3d_substeps, so every result is the library's.
+template <int N>
 __global__ void quad2d_advance_kernel(
     const float* __restrict__ states, const float* __restrict__ t1,
     const float* __restrict__ t2, const float* __restrict__ dyn,
@@ -339,19 +344,25 @@ __global__ void quad2d_advance_kernel(
     int n_substeps, float dt) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* s = states + 6 * b;
-  float x = s[0], xd = s[1], z = s[2], zd = s[3], th = s[4], thd = s[5];
-  quad2d_substeps(x, xd, z, zd, th, thd, t1[b], t2[b], dyn[2 * b + 0],
-                  dyn[2 * b + 1], params[0], params[1], params[2], params[3],
-                  n_substeps, dt);
-  float* o = out + 6 * b;
-  o[0] = x; o[1] = xd; o[2] = z; o[3] = zd; o[4] = th; o[5] = thd;
+  float start[6], s[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    start[k] = states[6 * b + k];
+    s[k] = start[k];
+  }
+  const float T1 = t1[b], T2 = t2[b];
+  const float fx = dyn[2 * b + 0], fz = dyn[2 * b + 1];
+  const float m = params[0], Iyy = params[1], L = params[2], g = params[3];
+  if (!quad2d_substeps_exact<N>(s, T1, T2, fx, fz, m, Iyy, L, g, n_substeps, dt)) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s[k] = start[k];
+    quad2d_substeps(s[0], s[1], s[2], s[3], s[4], s[5], T1, T2, fx, fz, m, Iyy, L, g,
+                    n_substeps, dt);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) out[6 * b + k] = s[k];
 }
 
-// K3: one thread an env, N substeps compiled in or n_substeps if N == 0. The
-// loaded state stays in registers; where quad3d_substeps_exact reports a
-// special operand, the step is recomputed from it with the library's
-// quad3d_substeps, so every result is the library's.
 template <int N>
 __global__ void quad3d_advance_kernel(
     const float* __restrict__ states, const float* __restrict__ forces,
@@ -615,8 +626,8 @@ __device__ __forceinline__ void quad_open_step(const Modes& m, const float* c,
   if constexpr (QT == 2) {
     const float T1 = 2.0f * c[KF] * rpm[0] * rpm[0];
     const float T2 = 2.0f * c[KF] * rpm[1] * rpm[1];
-    if (!quad2d_substeps_exact<N>(s, T1, T2, c[MASS], c[IYY], c[ARM_L], c[GRAVITY],
-                                  n_substeps, dt)) {
+    if (!quad2d_substeps_exact<N>(s, T1, T2, 0.0f, 0.0f, c[MASS], c[IYY], c[ARM_L],
+                                  c[GRAVITY], n_substeps, dt)) {
 #pragma unroll
       for (int k = 0; k < NX; ++k) s[k] = start[k];
       quad2d_substeps(s[0], s[1], s[2], s[3], s[4], s[5], T1, T2, 0.0f, 0.0f, c[MASS],
@@ -830,11 +841,11 @@ int scg_quad2d_advance(const void* states, const void* t1, const void* t2,
                        const void* dyn, const void* params, void* out, int B,
                        int n_substeps, float dt, int threads, void* stream) {
   if (B > 0) {
-    quad2d_advance_kernel<<<(B + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
-        (const float*)states, (const float*)t1, (const float*)t2,
-        (const float*)dyn, (const float*)params, (float*)out, B, n_substeps,
-        dt);
+    auto kernel = n_substeps == kSpecialisedSubsteps
+        ? quad2d_advance_kernel<kSpecialisedSubsteps> : quad2d_advance_kernel<0>;
+    kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)states, (const float*)t1, (const float*)t2, (const float*)dyn,
+        (const float*)params, (float*)out, B, n_substeps, dt);
   }
   return (int)cudaGetLastError();
 }

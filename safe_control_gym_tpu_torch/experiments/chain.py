@@ -5,6 +5,7 @@ one env's substeps, the latencies of its instructions, and a launch.
     probes, rows, table = chain.measured_chain(dev)   # latencies, SASS, latency table
     cycles = chain.reference_chain_cycles(rows)   # {system: cycles of one substep}
     ms = chain.chain_bound_ms(cycles['cartpole'], T, 20, chain.sm_clock_ghz())
+    issued = chain.compiled_in_fast_path(rows)    # {system: {kind: instructions}}
 
 * ``chain_times``: ns a substep of the open-loop kernels (K4, K5) at B=4096,
   T=4096 on the main path's constrained rows and on hover replays (the
@@ -20,9 +21,15 @@ one env's substeps, the latencies of its instructions, and a launch.
   of divide, reciprocal, ``sinf``/``cosf`` and ``sqrtf``, and its dependent
   chain a substep, counted with a latency table;
 * ``reference_chain_cycles``: the chain of one substep of the per-step
-  kernels' runtime-count loop (K1 and K3 at N = 0, K2), which sets the
-  chain bound (``chain_bound_ms``) of every kernel that runs those
-  substeps one env a thread;
+  kernels' runtime-count loop (K1-K3 at N = 0), which sets the chain bound
+  (``chain_bound_ms``) of every kernel that runs those substeps one env a
+  thread;
+* ``compiled_in_fast_path``: the fast-path instructions of one substep in
+  the per-step and open-loop kernels instantiated for the 20 substeps
+  compiled in. At B=4096 each SM holds one warp, which issues at most one
+  instruction a cycle, so n_substeps x that count over the SM clock is the
+  issue floor of those kernels' substeps, beside the chain bound (where a
+  substep's chain is short, as in 2D, the issue floor is the larger);
 * ``sm_clock_ghz``: the SM clock under load; ``launch_floor``: an empty
   kernel on the per-step kernels' grid.
 
@@ -47,7 +54,7 @@ __all__ = ['CHAIN_SYSTEMS', 'CHAIN_KERNELS', 'REDUCTIONS_PER_SUBSTEP', 'LATENCY_
            'PROBE_LESS', 'best_time_ms', 'sm_clock_ghz', 'chain_times', 'template_args',
            'substeps_per_iteration', 'substep_loops', 'chain_sass', 'latency_probe',
            'probe_opcodes', 'calibrated_latency', 'chain_bound_ms', 'reference_chain_cycles',
-           'measured_chain', 'launch_floor']
+           'compiled_in_fast_path', 'measured_chain', 'launch_floor']
 
 B = 4096
 CHAIN_SYSTEMS = ('cartpole', 'quadrotor', 'quadrotor_3D')
@@ -278,6 +285,22 @@ def reference_chain_cycles(sass_rows, key='chain_cycles_per_substep'):
             if advance in fname and template_args(fname) in ([], [0]) \
                     and 'substep_loop' in entry:
                 out[system] = entry['substep_loop'][key]
+    return out
+
+
+def compiled_in_fast_path(sass_rows):
+    """{system: {'advance' or 'rollout': fast-path instructions of one
+    substep}} from the substep loop of the per-step kernel and of the
+    open-loop kernel instantiated for the substep count compiled in (a last
+    template argument of SPECIALISED_SUBSTEPS): what one thread issues a
+    substep on the main path."""
+    out = {}
+    for system, (_, _, advance) in CHAIN_KERNELS.items():
+        for fname, entry in sass_rows[system].items():
+            if template_args(fname)[-1:] == [rk.SPECIALISED_SUBSTEPS] \
+                    and 'substep_loop' in entry:
+                kind = 'advance' if advance in fname else 'rollout'
+                out.setdefault(system, {})[kind] = entry['substep_loop']['fast_path_per_substep']
     return out
 
 

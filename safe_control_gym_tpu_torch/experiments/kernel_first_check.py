@@ -51,7 +51,10 @@ checks above:
   and chain cycles;
 * the chain bound (``chain_bound_ms``): T x n_substeps x the loop-carried
   chain of one substep of the per-step kernels' runtime-count loop
-  (``chain.reference_chain_cycles``) at the measured latencies and SM clock.
+  (``chain.reference_chain_cycles``) at the measured latencies and SM clock;
+  beside it the issue floor, the same with the fast-path instructions of one
+  substep of the loops compiled for 20 (``chain.compiled_in_fast_path``) at
+  one a cycle.
 """
 
 from __future__ import annotations
@@ -158,14 +161,20 @@ def chain_report(dev, root=None):
                 print(json.dumps(timed[-1]), flush=True)
     n_sub = rk.SPECIALISED_SUBSTEPS
     table = reference_chain_cycles(rows, 'chain_cycles_table')
+    issued = chain.compiled_in_fast_path(rows)
     for system, cycles in reference_chain_cycles(rows).items():
         print(json.dumps({'chain_bound': system, 'cycles_per_substep': cycles,
                           'cycles_per_substep_table': table[system], 'sm_clock_ghz': clock,
                           'ms_T131072': chain_bound_ms(cycles, 131072, n_sub, clock),
-                          'ms_T4096': chain_bound_ms(cycles, CHAIN_T, n_sub, clock)}),
+                          'ms_T4096': chain_bound_ms(cycles, CHAIN_T, n_sub, clock),
+                          'fast_path_per_substep': issued[system],
+                          'issue_floor_ms_per_step': {
+                              kind: chain_bound_ms(n, 1, n_sub, clock)
+                              for kind, n in issued[system].items()}}),
               flush=True)
         other = f' (other {other_cycles[system]:.2f})' if root else ''
-        print(f'summary chain {system:>12} {cycles:7.2f} cycles a substep{other}')
+        print(f'summary chain {system:>12} {cycles:7.2f} cycles a substep{other}; issued a '
+              'substep ' + ', '.join(f'{k} {n:.2f}' for k, n in issued[system].items()))
     for row in probes:
         print(f'summary latency {row["probe"]:>8} {row["opcode"]:>16} {row["cycles"]:7.2f} '
               f'cycles (table {row["table_cycles"]})')

@@ -17,8 +17,9 @@ layout, not part of the function).
 
 Bound on the card: per env, K1 moves 44 bytes, K2 64 and K3 128, against
 20 substeps of one to three sin/cos pairs and 20-60 other float ops. At the
-env step's batch sizes each is bound by its launch and the latency of its
-serial chain, not by bytes or FLOP/s. So K1 and K3 run ``csrc/exact_math.cuh``'s
+env step's batch sizes each is bound by its launch and by one warp's run of
+the substeps (the latency of their serial chain, or their issue where that
+chain is short, as in 2D), not by bytes or FLOP/s. So K1-K3 run ``csrc/exact_math.cuh``'s
 branch-free copies of the library's sin/cos, reciprocal and divide, with 20
 substeps compiled in (the runtime count otherwise) and the step recomputed
 with the library's functions where an operand is special: their results are

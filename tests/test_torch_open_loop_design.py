@@ -87,10 +87,12 @@ def test_latency_probe_list_matches_the_kernel_source():
     ('_ZN12_GLOBAL__N_123cartpole_rollout_kernelILi0EEEvPKfS2_', 1),
     ('_ZN12_GLOBAL__N_121quad3d_advance_kernelILi20EEEvPKfS2_S2_S2_S2_Pfiif', 5),
     ('_ZN12_GLOBAL__N_121quad3d_advance_kernelILi0EEEvPKfS2_S2_S2_S2_Pfiif', 1),
+    ('_ZN12_GLOBAL__N_121quad2d_advance_kernelILi20EEEvPKfS2_S2_S2_S2_Pfiif', 5),
+    ('_ZN12_GLOBAL__N_121quad2d_advance_kernelILi0EEEvPKfS2_S2_S2_S2_Pfiif', 1),
 ])
 def test_substeps_an_iteration_of_each_open_loop_kernel(name, per_iteration):
     """A loop iteration of the compiled-in count runs a chunk; with a runtime
-    count, one substep. The per-step kernels K1 and K3 are templated alike."""
+    count, one substep. The per-step kernels K1-K3 are templated alike."""
     assert chain.substeps_per_iteration(name) == per_iteration
 
 
