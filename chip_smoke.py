@@ -63,7 +63,21 @@ Phases, one JSON line each:
                every launch counter set to 0 before and read after;
   9. welch_closed_loop  stochastic PPO through the kernel path against the
                per-step path, per env, in distribution;
- 10. kernels   one entry per kernel with its launches, error, times and bound.
+ 10. ppo_train PPO training through make('ppo', ..., training=True): the
+               committed cartpole config (64 envs x 150 steps, 300k env
+               steps) to its end, then ctrl.run(n_episodes=10), gated on
+               finite losses, total_steps, K1's launches (iterations x T plus
+               the eval's steps) and an eval return of PPO_EVAL_BAR; the
+               committed 2D and 3D configs (128 wide) for two iterations
+               each, gated on finite losses and K2's or K3's launches; one
+               update on a batch of the card's last cartpole rollout, card
+               against CPU on the same permutations (params 1e-4); a
+               torch.profiler window over one rollout and one epoch (the
+               device's busy share); every launch counter set to 0 before
+               each training part and read after;
+ 11. kernels   one entry per kernel with its launches, error, times and bound
+               (K1-K3 also with train_launches and train_shape, from phase
+               ppo_train).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
@@ -75,6 +89,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -100,6 +115,14 @@ T_CLOSED = 500         # the committed models' closed-loop rows (two episodes)
 T_COMMITTED = 300      # the committed models against the plain version: past the
                        # 250-step episode, so every env draws a fresh state
 T_WELCH_CLOSED = 1000
+PPO_QUAD_ITERATIONS = 2   # training iterations of the 2D and 3D configs
+# The cartpole training's eval bar: the solved mark, deterministic eval return
+# 200 (PERFORMANCE.md:354-356). The JAX package's PPO, trained on the CPU with
+# the same config and seed 0, evaluates to 249.28 over 10 episodes
+# (tests/test_torch_ppo_train.py::test_cartpole_solves_as_jax_does), so the
+# bar is the solved mark and not 0.8 of JAX's return.
+PPO_EVAL_BAR = 200.0
+PPO_UPDATE_ATOL = 1e-4
 # bench.py's closed-loop rows (hidden 64, stochastic), and one at the SAC width.
 CLOSED_BENCH = [('cartpole', 64, 'tanh', 1, 65536), ('quadrotor', 64, 'tanh', 1, 65536),
                 ('quadrotor_3D', 64, 'tanh', 1, 65536), ('quadrotor_3D', 256, 'relu', 2, 2048)]
@@ -842,6 +865,178 @@ def welch_closed_loop(dev):
                    f'closed loop stochastic PPO {model_system} {key}/step')
 
 
+def _ppo(system, dev, out_dir, iterations=None):
+    """The committed PPO config of ``system`` on the card, from seed 0, cut
+    to ``iterations`` training iterations where given."""
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env_id, task_config, algo_config = eval_config('ppo', system)
+    if iterations is not None:
+        algo_config = dict(algo_config, max_env_steps=iterations * int(
+            algo_config['rollout_batch_size']) * int(algo_config['rollout_steps']))
+    ctrl = make('ppo', functools.partial(make, env_id, device=dev, **task_config),
+                training=True, output_dir=os.path.join(out_dir, system), seed=0,
+                **algo_config)
+    return ctrl, algo_config
+
+
+def _train(ctrl):
+    """reset + learn, timed on the host; returns the wall seconds."""
+    t0 = time.perf_counter()
+    ctrl.reset()
+    ctrl.learn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _update_card_against_cpu(ctrl):
+    """One update (opt_epochs x minibatches) on a batch of a fresh rollout of
+    the card, run by the card's agent and by a copy on the CPU, on the same
+    permutations; returns the largest parameter difference and both counts
+    of accepted actor steps."""
+    from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import PPOAgent
+    from safe_control_gym_tpu_torch.math.optim import tree_leaves
+    batch, _ = ctrl.rollout()
+    m = batch['obs'].shape[0]
+    _, _, used = ctrl.agent.minibatch_plan(m)
+    cpu_gen = torch.Generator().manual_seed(0)
+    perms = [torch.randperm(m, generator=cpu_gen)[:used] for _ in range(int(ctrl.opt_epochs))]
+    cpu = PPOAgent(ctrl.env.observation_space, ctrl.env.action_space, device='cpu',
+                   **{k: getattr(ctrl, k) for k in (
+                       'hidden_dim', 'use_clipped_value', 'clip_param', 'target_kl',
+                       'entropy_coef', 'actor_lr', 'critic_lr', 'opt_epochs',
+                       'mini_batch_size', 'activation', 'max_grad_norm')})
+    cpu.load_state_dict(ctrl.agent.state_dict())
+    counts0 = int(ctrl.agent.actor_opt_state['count'])
+    card_losses = ctrl.agent.update(batch, perms=perms)
+    cpu_losses = cpu.update({k: v.cpu() for k, v in batch.items()}, perms=perms)
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(tree_leaves(ctrl.agent.params), tree_leaves(cpu.params)))
+    return dict(max_abs_err=err, rows=m, rows_used=used,
+                accepted_card=int(ctrl.agent.actor_opt_state['count']) - counts0,
+                accepted_cpu=int(cpu.actor_opt_state['count']) - counts0,
+                losses_card=card_losses, losses_cpu=cpu_losses)
+
+
+def _profiled(fn):
+    """Run ``fn`` under ``torch.profiler``: host seconds to the last
+    synchronize, the device's busy seconds (its kernels' time) and the
+    kernels launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return wall, sum(e.self_device_time_total for e in kernels) / 1e6, sum(
+        e.count for e in kernels)
+
+
+def _training_trace(ctrl):
+    """One rollout and one epoch of minibatch steps of ``ctrl`` under the
+    profiler (after a rollout to take the batch from): host and device-busy
+    seconds of each, and kernels a rollout step and a minibatch."""
+    batch, _ = ctrl.rollout()
+    torch.cuda.synchronize()
+    _, num_mb, _ = ctrl.agent.minibatch_plan(batch['obs'].shape[0])
+    epochs, ctrl.agent.opt_epochs = ctrl.agent.opt_epochs, 1
+    r_wall, r_busy, r_kernels = _profiled(ctrl.rollout)
+    u_wall, u_busy, u_kernels = _profiled(lambda: ctrl.agent.update_tensors(batch, ctrl.gen))
+    ctrl.agent.opt_epochs = epochs
+    return dict(window=f'one rollout (T={ctrl.T}) and one epoch ({num_mb} minibatches), '
+                       'each under torch.profiler',
+                rollout_s=r_wall, rollout_device_busy_s=r_busy, rollout_kernels=r_kernels,
+                kernels_per_step=r_kernels / ctrl.T, epoch_s=u_wall,
+                epoch_device_busy_s=u_busy, epoch_kernels=u_kernels,
+                kernels_per_minibatch=u_kernels / num_mb,
+                device_busy_share=(r_busy + u_busy) / (r_wall + u_wall))
+
+
+def ppo_train(dev, smi):
+    """The slice's main path: PPO training on the card through the entry
+    points, K1-K3 stepping every rollout step; see the module docstring."""
+    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
+    losses = ('policy_loss', 'value_loss', 'entropy_loss', 'approx_kl')
+    rows = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctrl, algo = _ppo('cartpole', dev, out_dir)
+        for fn in _counters():
+            fn.launches = 0
+        wall = _train(ctrl)
+        learn_launches = pk.cartpole_advance.launches
+        t0 = time.perf_counter()
+        res = ctrl.run(n_episodes=10)
+        eval_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in _counters()}
+        steps_per_iter = ctrl.N * ctrl.T
+        iterations = ctrl.total_steps // steps_per_iter
+        eval_steps = ctrl.eval_env.func.max_steps + 1
+        want = iterations * ctrl.T + eval_steps
+        eval_return = float(res['ep_returns'].mean())
+        last = ctrl.last_results
+        row = dict(system='cartpole', envs=ctrl.N, T=ctrl.T, hidden=int(ctrl.hidden_dim),
+                   iterations=iterations, total_steps=ctrl.total_steps,
+                   max_env_steps=int(algo['max_env_steps']), wall_s=wall,
+                   rollout_s=ctrl.train_seconds['rollout'],
+                   update_s=ctrl.train_seconds['update'],
+                   seconds_per_iteration=wall / iterations,
+                   env_steps_per_s=ctrl.total_steps / wall, eval_s=eval_s,
+                   last_iteration={k: last[k] for k in losses + ('mean_reward',)},
+                   eval_return=eval_return, eval_returns=res['ep_returns'].tolist(),
+                   eval_lengths=res['ep_lengths'].tolist(), eval_bar=PPO_EVAL_BAR,
+                   k1_launches=launches['cartpole_advance'],
+                   k1_launches_learn=learn_launches, k1_launches_expected=want,
+                   launches=launches, card=smi)
+        rows['cartpole'] = row
+        emit('ppo_train', **row)
+        if not all(np.isfinite(last[k]) for k in losses):
+            raise RuntimeError(f'ppo_train cartpole: a loss is not finite: {last}')
+        if ctrl.total_steps < int(algo['max_env_steps']):
+            raise RuntimeError(f'ppo_train cartpole stopped at {ctrl.total_steps} steps')
+        if launches['cartpole_advance'] != want or learn_launches != iterations * ctrl.T:
+            raise RuntimeError(f'ppo_train cartpole: K1 launched {launches}, expected {want}')
+        if not eval_return >= PPO_EVAL_BAR:
+            raise RuntimeError(f'ppo_train cartpole: eval return {eval_return} under the '
+                               f'bar {PPO_EVAL_BAR}')
+        upd = _update_card_against_cpu(ctrl)
+        emit('ppo_train', part='update card against CPU', atol=PPO_UPDATE_ATOL, **upd)
+        rows['update'] = upd
+        if not upd['max_abs_err'] <= PPO_UPDATE_ATOL:
+            raise RuntimeError(f'ppo_train: the card\'s update differs from the CPU\'s: {upd}')
+        rows['trace'] = _training_trace(ctrl)
+        emit('ppo_train', part='trace', card=smi, **rows['trace'])
+        ctrl.close()
+        for system, kernel in (('quadrotor_2D', 'quad2d_advance'),
+                               ('quadrotor_3D', 'quad3d_advance')):
+            ctrl, _ = _ppo(system, dev, out_dir, iterations=PPO_QUAD_ITERATIONS)
+            for fn in _counters():
+                fn.launches = 0
+            wall = _train(ctrl)
+            launches = {fn.__name__: fn.launches for fn in _counters()}
+            iterations = ctrl.total_steps // (ctrl.N * ctrl.T)
+            last = ctrl.last_results
+            row = dict(system=system, envs=ctrl.N, T=ctrl.T, hidden=int(ctrl.hidden_dim),
+                       iterations=iterations, total_steps=ctrl.total_steps, wall_s=wall,
+                       rollout_s=ctrl.train_seconds['rollout'],
+                       update_s=ctrl.train_seconds['update'],
+                       seconds_per_iteration=wall / iterations,
+                       env_steps_per_s=ctrl.total_steps / wall,
+                       last_iteration={k: last[k] for k in losses + ('mean_reward',)},
+                       launches=launches, card=smi)
+            rows[system] = row
+            emit('ppo_train', **row)
+            ctrl.close()
+            if not all(np.isfinite(last[k]) for k in losses):
+                raise RuntimeError(f'ppo_train {system}: a loss is not finite: {last}')
+            if iterations != PPO_QUAD_ITERATIONS or launches[kernel] != iterations * ctrl.T \
+                    or sum(launches.values()) != launches[kernel]:
+                raise RuntimeError(f'ppo_train {system}: launches {launches}, expected '
+                                   f'{iterations * ctrl.T} of {kernel} alone')
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -868,6 +1063,9 @@ def main():
     policy = {s: check_policy(s, dev) for s in SYSTEMS}
     cl_launches, cl_rows = closed_loop(dev, smi)
     welch_closed_loop(dev)
+    train = ppo_train(dev, smi)
+    train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
+                  'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
         row = policy[system]
         row['launches'] = cl_launches[f'{ROLLOUT[system]["name"]}.policy']
@@ -888,6 +1086,11 @@ def main():
         # (B=4096) issues at best.
         row = physics[system]
         row['launches'] = launches[PHYSICS[system]['name']]
+        tr = train_rows[system]
+        row['train_launches'] = tr['launches'][PHYSICS[system]['name']]
+        row['train_shape'] = (f'B={tr["envs"]} T={tr["T"]} x {tr["iterations"]} PPO '
+                              'iterations' + (' + 10-episode eval' if system == 'cartpole'
+                                              else ''))
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

@@ -1,22 +1,27 @@
-"""What the port's RL controllers share at inference.
+"""What the port's RL controllers share: the env, the config, the output paths and ``load``.
 
-``RLEvalController`` is what PPO, SAC and DDPG have in common when they
-evaluate a trained actor: the env from ``env_func`` (on the device
-``env_func`` gives it), ``load`` through the port's restricted unpickler,
-``evaluate_fused`` and ``close``. The JAX package's ``BaseController`` template
-and ``get_prior`` (which needs the symbolic model: ROADMAP Queue 1 item 11)
-come with the controllers that use them. Training (``learn``) comes with
-ROADMAP Queue 1 items 8 (PPO) and 9 (SAC, DDPG).
+``RLController`` holds what PPO, SAC and DDPG have in common: the env from
+``env_func`` (on the device ``env_func`` gives it), the algorithm's config as
+attributes, the generator on the env's device, ``load`` through the port's
+restricted unpickler, ``evaluate_fused`` and ``close``; and the training half
+of the JAX package's ``BaseController``
+(``safe_control_gym_tpu/controllers/base_controller.py:20-72``): ``training``,
+``output_dir``, ``checkpoint_path`` (a bare filename resolves under
+``output_dir``), ``setup_results_dict``, ``reset_before_run`` and
+``extract_step``. PPO trains (``controllers/ppo/ppo.py``); SAC's and DDPG's
+``learn`` raise until ROADMAP Queue 1 item 9. ``get_prior`` (which needs the
+symbolic model) comes with ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ['ActorAgent', 'RLEvalController']
+__all__ = ['ActorAgent', 'RLController']
 
 
 @dataclass
@@ -27,40 +32,62 @@ class ActorAgent:
     activation: str
 
 
-class RLEvalController:
-    """An RL controller at inference: the env from ``env_func(seed=seed)``
-    (pick its device with ``partial(make, env_id, device=...)``), the actor's
-    parameters on the env's device, ``load`` from a JAX package checkpoint
-    and ``evaluate_fused``. The algorithm's default config (``<algo>.json``)
-    fills in every key the caller leaves out, and every key becomes an
-    attribute. Subclasses build ``self.agent`` (``params`` and
-    ``activation``) and ``select_action``."""
+class RLController:
+    """An RL controller: the env from ``env_func(seed=seed)`` (pick its device
+    with ``partial(make, env_id, device=...)``), the actor's parameters on the
+    env's device, ``load`` from a JAX package checkpoint and
+    ``evaluate_fused``. The algorithm's default config (``<algo>.json``) fills
+    in every key the caller leaves out, and every key becomes an attribute.
+    Subclasses build ``self.agent`` (``params`` and ``activation``) and
+    ``select_action``; one that trains overrides ``learn``."""
 
     ALGO = 'rl'
     LEARN_ITEM = ''
 
-    def __init__(self, env_func, seed: int = 0, **config):
+    def __init__(self, env_func, training: bool = True,
+                 checkpoint_path: str = 'model_latest.pt', output_dir: str = 'temp',
+                 seed: int = 0, **config):
         from safe_control_gym_tpu_torch.utils.registration import get_config
         for key, value in {**get_config(self.ALGO.lower()), **config}.items():
             self.__dict__[key] = value
+        self.env_func = env_func
+        self.training = training
+        # Bare filenames resolve under output_dir, so that the end-of-training
+        # save never lands in the caller's working directory.
+        if checkpoint_path and not os.path.dirname(checkpoint_path):
+            checkpoint_path = os.path.join(output_dir, checkpoint_path)
+        self.checkpoint_path = checkpoint_path
+        self.output_dir = output_dir
         self.seed = seed if seed is not None else 0
         self.env = env_func(seed=self.seed)
         self.device = self.env.device
         self.gen = torch.Generator(device=self.device).manual_seed(int(self.seed))
+        self.setup_results_dict()
 
-    def _obs(self, obs):
+    def _tensor(self, obs):
         return torch.as_tensor(np.asarray(obs), dtype=torch.float32, device=self.device)
 
     def learn(self, env=None, **kwargs):
         raise NotImplementedError(f'{self.ALGO} training comes with {self.LEARN_ITEM}; '
                                   'this controller evaluates loaded checkpoints')
 
+    def extract_step(self, info=None) -> int:
+        """The current step from the env's info (0 without one)."""
+        return info['current_step'] if info is not None else 0
+
+    def setup_results_dict(self):
+        self.results_dict = {}
+
+    def reset_before_run(self, obs=None, info=None, env=None):
+        self.setup_results_dict()
+
     def close(self):
         self.env.close()
 
     def load(self, path):
-        """Restore the agent's parameters (and PPO's observation normalizer)
-        from a checkpoint the JAX package wrote."""
+        """Restore the agent's parameters and the observation normalizer from
+        a checkpoint the JAX package wrote (PPO restores its whole training
+        state instead)."""
         from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint
         from safe_control_gym_tpu_torch.utils.convert import (mlp_params_from_numpy,
                                                               normalizer_from_numpy)

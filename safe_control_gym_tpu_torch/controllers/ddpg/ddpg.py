@@ -11,15 +11,14 @@ from __future__ import annotations
 
 import torch
 
-from safe_control_gym_tpu_torch.controllers.base_controller import (ActorAgent,
-                                                                     RLEvalController)
+from safe_control_gym_tpu_torch.controllers.base_controller import ActorAgent, RLController
 from safe_control_gym_tpu_torch.controllers.ddpg.ddpg_utils import ddpg_actor_forward
 from safe_control_gym_tpu_torch.math.networks import mlp_init
 
 __all__ = ['DDPG']
 
 
-class DDPG(RLEvalController):
+class DDPG(RLController):
     """Deep deterministic policy gradient, at inference."""
 
     ALGO = 'DDPG'
@@ -32,12 +31,12 @@ class DDPG(RLEvalController):
         actor = mlp_init(self.gen, obs_dim, act_dim, [int(self.hidden_dim)] * 2,
                          orthogonal=False)
         self.agent = ActorAgent({'actor': actor}, getattr(self, 'activation', 'relu'))
-        self.act_low = self._obs(self.env.action_space.low)
-        self.act_high = self._obs(self.env.action_space.high)
+        self.act_low = self._tensor(self.env.action_space.low)
+        self.act_high = self._tensor(self.env.action_space.high)
 
     def select_action(self, obs, info=None):
         """The deterministic action, as numpy float32."""
         with torch.no_grad():
-            act = ddpg_actor_forward(self.agent.params['actor'], self._obs(obs),
+            act = ddpg_actor_forward(self.agent.params['actor'], self._tensor(obs),
                                      self.act_low, self.act_high, self.agent.activation)
         return act.cpu().numpy()

@@ -14,15 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from safe_control_gym_tpu_torch.controllers.base_controller import (ActorAgent,
-                                                                     RLEvalController)
+from safe_control_gym_tpu_torch.controllers.base_controller import ActorAgent, RLController
 from safe_control_gym_tpu_torch.controllers.sac.sac_utils import sac_actor_forward
 from safe_control_gym_tpu_torch.math.networks import mlp_init
 
 __all__ = ['SAC']
 
 
-class SAC(RLEvalController):
+class SAC(RLController):
     """Soft actor-critic, at inference."""
 
     ALGO = 'SAC'
@@ -36,13 +35,13 @@ class SAC(RLEvalController):
         actor = mlp_init(self.gen, obs_dim, 2 * act_dim, [int(self.hidden_dim)] * 2,
                          orthogonal=False)
         self.agent = ActorAgent({'actor': actor}, getattr(self, 'activation', 'relu'))
-        self.act_low = self._obs(self.env.action_space.low)
-        self.act_high = self._obs(self.env.action_space.high)
+        self.act_low = self._tensor(self.env.action_space.low)
+        self.act_high = self._tensor(self.env.action_space.high)
 
     def select_action(self, obs, info=None):
         """The deterministic action (tanh of the mean), as numpy float32."""
         with torch.no_grad():
-            act, _ = sac_actor_forward(self.agent.params['actor'], self._obs(obs),
+            act, _ = sac_actor_forward(self.agent.params['actor'], self._tensor(obs),
                                        self.gen, self.act_low, self.act_high,
                                        self.agent.activation, deterministic=True,
                                        with_logprob=False)

@@ -141,10 +141,10 @@ def test_gates_refuse_what_neither_path_reproduces(tmp_path):
     ddpg = tmake('ddpg', functools.partial(tmake, 'cartpole', device='cpu', **physical))
     with pytest.raises(ValueError, match='normalized action space'):
         ddpg.evaluate_fused(batch=4, n_steps=3)
+    with pytest.raises(NotImplementedError, match='item 9'):
+        ddpg.learn()
     ddpg.close()
     ppo = tmake('ppo', functools.partial(tmake, 'cartpole', device='cpu', **physical))
     res = ppo.evaluate_fused(batch=4, n_steps=3, stochastic=True, n_reps=0)
     assert res['path'] == 'per-step-scan' and res['total_steps'] == 12
-    with pytest.raises(NotImplementedError, match='item 8'):
-        ppo.learn()
     ppo.close()

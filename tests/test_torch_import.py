@@ -88,5 +88,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         make('sac', functools.partial(make, 'cartpole'))
     ctrl = make('ppo', functools.partial(make, 'cartpole', device='cpu'))
     assert ctrl.device.type == 'cpu' and ctrl.agent.params['logstd'].device.type == 'cpu'
+    from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import PPOAgent
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        PPOAgent(ctrl.env.observation_space, ctrl.env.action_space)
     env = make('cartpole', device='cpu')
     assert env.device.type == 'cpu'
