@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its
-kernels, then drive the batched cartpole and quadrotor rollouts and the
-closed-loop evaluation of the committed RL models through the port's entry
-points.
+kernels, then drive the batched cartpole and quadrotor rollouts, the
+closed-loop evaluation of the committed RL models, PPO training and the
+model-based controllers (LQR, iLQR, PID) through the port's entry points.
 
     python3 chip_smoke.py
 
@@ -75,9 +75,31 @@ Phases, one JSON line each:
                torch.profiler window over one rollout and one epoch (the
                device's busy share); every launch counter set to 0 before
                each training part and read after;
- 11. kernels   one entry per kernel with its launches, error, times and bound
+ 11. control   model-based control through make('ilqr' | 'lqr' | 'pid',
+               partial(make, env, device='cuda', ...)): K1 at 50 substeps and
+               K2 at 4 (the control configs' counts) bit for bit against their
+               plain versions at B=4096 and B=1, the Riccati solvers and expm
+               on the card against scipy, eigh against iLQR's closed-form
+               inverse of H; then, every launch counter set to 0 before and
+               read after, iLQR's solve_batch at B=4096 on
+               examples/lqr/batched_ilqr_demo.py's cartpole (T=45, 50
+               substeps) and the committed 2D quad example (T=360, 4
+               substeps), 10 iterations each, K1's or K2's launches exactly
+               10 x T, every card policy's best cost held to a CPU rollout of
+               it (rtol 1e-3), the first 64 problems to the port's CPU solve
+               of them: on the cartpole all equal (costs, cost curves, gains,
+               feedforwards rtol 1e-3, counts and flags exact), on the
+               ill-conditioned 2D solve a share CONTROL_AGREE_SHARE in best
+               cost and iteration count, beside the CPU's own share under a
+               1e-6 change of the initial states; LQR on the cartpole stab example, card against
+               CPU (states 1e-4); PID on the 3D tracking example, the card's
+               loop recorded, the CPU's PID on its observations and the CPU's
+               env stepped from each of its states under its action (1e-4); a
+               torch.profiler window over one cartpole solve;
+ 12. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
-               ppo_train).
+               ppo_train, and control_launches and control_shape, from phase
+               control).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
@@ -127,6 +149,28 @@ PPO_UPDATE_ATOL = 1e-4
 CLOSED_BENCH = [('cartpole', 64, 'tanh', 1, 65536), ('quadrotor', 64, 'tanh', 1, 65536),
                 ('quadrotor_3D', 64, 'tanh', 1, 65536), ('quadrotor_3D', 256, 'relu', 2, 2048)]
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# Phase control: iLQR's batched solve at B_CONTROL problems, its first
+# CONTROL_GATE_ROWS held to the port's CPU solve of the same problems (costs,
+# cost curves, gains and feedforwards to rtol 1e-3, with atol 1e-3 for
+# entries near 0, as tests/test_ilqr_fused.py; iteration, convergence and
+# abort flags equal); the LQR and PID closed loops card against CPU, 1e-4.
+B_CONTROL = 4096
+CONTROL_GATE_ROWS = 64
+CONTROL_RTOL = 1e-3
+CONTROL_ATOL = 1e-4
+# The 2D quad's solve (T=360) is ill-conditioned in float32: a 1e-6 change of
+# the initial state moves the best cost or the iteration count of about one
+# problem in seven of the port's own CPU solve, and so does the last digit of
+# the LQR gain. There the gate asks this share of the first 64 problems to
+# agree with the CPU's solve, reports the CPU's own share under that 1e-6
+# change, and holds every card policy's cost to a CPU rollout of it.
+CONTROL_AGREE_SHARE = 0.75
+CONTROL_PERTURB = 1e-6
+# examples/lqr/batched_ilqr_demo.py's cartpole problem (T=45, 50 substeps).
+ILQR_DEMO_TASK = dict(seed=0, cost='quadratic', task='stabilization',
+                      task_info={'stabilization_goal': [0.5, 0.0],
+                                 'stabilization_goal_tolerance': 0.0},
+                      randomized_init=False, episode_len_sec=3, ctrl_freq=15, pyb_freq=750)
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -1037,6 +1081,244 @@ def ppo_train(dev, smi):
     return rows
 
 
+def _control_kernel_checks(dev):
+    """K1 at 50 substeps (15 Hz over 750 Hz) and K2 at 4 (60 over 240), the
+    counts of the control configs, bit for bit against their plain versions
+    at B=4096 and at the stateful loops' B=1; the Riccati solvers and expm on
+    the card against scipy on tests/test_linalg.py's systems (its tolerances:
+    np.allclose, rtol 1e-5 plus atol 1e-4, 1e-4 and 2e-4); and the cost of
+    torch.linalg.eigh (which waits for the card) against iLQR's closed-form
+    inverse of H, for (B, 2, 2)."""
+    import scipy.linalg as sla
+    from safe_control_gym_tpu_torch.controllers.lqr.ilqr import _regularized_inverse
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.math import linalg
+    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
+    rows = {}
+    for system, n_sub, dt in (('cartpole', 50, 1.0 / 750), ('quadrotor', 4, 1.0 / 240)):
+        meta = PHYSICS[system]
+        kernel, plain = getattr(pk, meta['name']), getattr(pk, meta['name'] + '_plain')
+        for batch in (B, 1):
+            args = (*bs.physics_args(system, dev, batch, seed=4), n_sub, dt)
+            err = float((kernel(*args) - plain(*args)).abs().max())
+            torch.cuda.synchronize()
+            row = dict(kernel=meta['name'], B=batch, n_substeps=n_sub, max_abs_err=err, tol=0.0,
+                       ms=time_ms(lambda: kernel(*args), 200))
+            rows[f'{meta["id"]} B={batch} n_substeps={n_sub}'] = row
+            emit('control', part='kernel at the control substeps', **row)
+            if err != 0.0:
+                raise RuntimeError(f'{meta["id"]} at {n_sub} substeps disagrees with its plain '
+                                   f'version: {err}')
+    rng = np.random.default_rng(0)
+    systems = [(rng.standard_normal((4, 4)) * 0.5, rng.standard_normal((4, 2)))
+               for _ in range(4)]
+    A = torch.tensor(np.stack([a for a, _ in systems]), dtype=torch.float32, device=dev)
+    Bm = torch.tensor(np.stack([b for _, b in systems]), dtype=torch.float32, device=dev)
+    Q, R = np.eye(4), np.eye(2) * 0.1
+    got = {'solve_dare': linalg.solve_dare(A, Bm, Q, R), 'solve_care': linalg.solve_care(A, Bm, Q, R),
+           'expm': linalg.expm(A)}
+    want = {'solve_dare': [sla.solve_discrete_are(a, b, Q, R) for a, b in systems],
+            'solve_care': [sla.solve_continuous_are(a, b, Q, R) for a, b in systems],
+            'expm': [sla.expm(a) for a, _ in systems]}
+    for name, atol in (('solve_dare', 1e-4), ('solve_care', 1e-4), ('expm', 2e-4)):
+        card_out = got[name].cpu().numpy()
+        err = max(float(np.abs(c - w).max()) for c, w in zip(card_out, want[name]))
+        ok = all(np.allclose(c, w, rtol=1e-5, atol=atol) for c, w in zip(card_out, want[name]))
+        rows[name] = dict(max_abs_err_vs_scipy=err, atol=atol, rtol=1e-5, ok=ok)
+        emit('control', part='linalg on the card against scipy', function=name, **rows[name])
+        if not ok:
+            raise RuntimeError(f'{name} on the card disagrees with scipy: {err}')
+    g = torch.Generator(device=dev).manual_seed(0)
+    M = torch.randn((B, 2, 2), generator=g, device=dev)
+    H = M @ M.transpose(1, 2) + 0.1 * torch.eye(2, device=dev)
+    lamb = torch.ones(B, device=dev)
+    per_call = lambda fn: time_ms(fn, 50, primed=False)
+    closed_ms = per_call(lambda: _regularized_inverse(H, lamb))
+
+    def eigh_inverse():
+        evals, evecs = torch.linalg.eigh(H)
+        evals = torch.clamp(evals, min=0.0) + lamb[:, None]
+        return (evecs * (1.0 / evals)[:, None, :]) @ evecs.transpose(1, 2)
+    eigh_ms = per_call(eigh_inverse)
+    err = float((_regularized_inverse(H, lamb) - eigh_inverse()).abs().max())
+    rows['inverse_of_H'] = dict(B=B, nu=2, closed_form_ms=closed_ms, eigh_ms=eigh_ms,
+                                max_abs_diff=err, timing='host clock over 50 back-to-back '
+                                'calls ending in a synchronize (eigh waits for the card)')
+    emit('control', part='inverse of H: closed form against eigh', **rows['inverse_of_H'])
+    return rows
+
+
+def _closed_loop_record(ctrl, env):
+    """One episode of ``ctrl`` on ``env``: observations, infos and actions."""
+    obs, info = env.reset()
+    observations, infos, actions = [obs], [info], []
+    done = False
+    while not done:
+        action = ctrl.select_action(obs, info)
+        obs, _, done, info = env.step(action)
+        observations.append(obs)
+        infos.append(info)
+        actions.append(np.asarray(action))
+    return np.array(observations), infos, np.array(actions)
+
+
+def control(dev, smi):
+    """The slice's main path: make('ilqr' | 'lqr' | 'pid', partial(make, env,
+    device='cuda', ...)) through the entry points, K1-K3 stepping every
+    closed loop; see the module docstring."""
+    from safe_control_gym_tpu_torch.experiments.control_configs import control_config
+    from safe_control_gym_tpu_torch.utils.registration import get_config, make
+    t_phase = time.perf_counter()
+    checks = _control_kernel_checks(dev)
+    _, quad_task, quad_algo = control_config('ilqr', 'quadrotor_2D', 'stab')
+    solves = [('cartpole', 'cartpole', ILQR_DEMO_TASK, dict(get_config('ilqr'), max_iterations=10),
+               'examples/lqr/batched_ilqr_demo.py', 0.2, True),
+              ('quadrotor_2D', 'quadrotor', quad_task, quad_algo,
+               'examples/lqr/config_overrides/quadrotor_2D/ilqr_quadrotor_2D_stab.yaml', 0.1,
+               False)]
+    ctrls = {name: make('ilqr', functools.partial(make, env_id, device=dev, **task), **algo)
+             for name, env_id, task, algo, *_ in solves}
+    # One iteration of two problems first: torch.func's first use is set-up.
+    warm = ctrls['cartpole']
+    warm.max_iterations, iterations = 1, warm.max_iterations
+    warm.solve_batch(np.repeat(warm.env._nominal_init_state()[None], 2, axis=0))
+    warm.max_iterations = iterations
+    rows = {}
+    for fn in _counters():
+        fn.launches = 0
+    for name, env_id, task, algo, source, spread, strict in solves:
+        ctrl = ctrls[name]
+        nominal = np.asarray(ctrl.env._nominal_init_state(), np.float32)
+        x0s = nominal + np.random.default_rng(0).uniform(
+            -spread, spread, (B_CONTROL, nominal.shape[0])).astype(np.float32)
+        before = {fn.__name__: fn.launches for fn in _counters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ctrl.solve_batch(x0s)
+        seconds = time.perf_counter() - t0
+        moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+        G = CONTROL_GATE_ROWS
+        cpu = make('ilqr', functools.partial(make, env_id, device='cpu', **task), **algo)
+        t0 = time.perf_counter()
+        ref = cpu.solve_batch(x0s[:G])
+        cpu_seconds = time.perf_counter() - t0
+        ref_moved = cpu.solve_batch(x0s[:G] + np.float32(CONTROL_PERTURB))
+        t0 = time.perf_counter()
+        reeval = cpu.evaluate_batch(x0s, out['gains_fb'], out['input_ff'])
+        reeval_seconds = time.perf_counter() - t0
+        reeval_err = float(np.max(np.abs(reeval - out['cost']) / np.abs(out['cost'])))
+        T, kname = ctrl.env.CTRL_STEPS, PHYSICS['cartpole' if name == 'cartpole'
+                                                   else 'quadrotor']['name']
+        card_rows = {k: v[:G] for k, v in out.items()}
+        same = lambda a, b: (np.isclose(a['cost'], b['cost'], rtol=CONTROL_RTOL,
+                                        atol=CONTROL_RTOL) & (a['iterations'] == b['iterations']))
+        agree_share = float(same(card_rows, ref).mean())
+        cpu_self_share = float(same(ref_moved, ref).mean())
+        errs = {k: float(np.abs(card_rows[k] - ref[k]).max())
+                for k in ('cost', 'cost_curves', 'gains_fb', 'input_ff')}
+        close = {k: bool(np.allclose(card_rows[k], ref[k], rtol=CONTROL_RTOL,
+                                     atol=CONTROL_RTOL)) for k in errs}
+        equal = {k: bool(np.array_equal(card_rows[k], ref[k]))
+                 for k in ('iterations', 'converged', 'aborted')}
+        row = dict(system=name, source=source, B=B_CONTROL, T=T,
+                   n_substeps=ctrl.env.PYB_STEPS_PER_CTRL, max_iterations=ctrl.max_iterations,
+                   seconds=seconds, problems_per_s=B_CONTROL / seconds,
+                   converged_share=float(out['converged'].mean()),
+                   aborted_share=float(out['aborted'].mean()),
+                   iterations_mean=float(out['iterations'].mean()),
+                   cost_mean=float(out['cost'].mean()), launches=moved,
+                   launches_expected={kname: ctrl.max_iterations * T},
+                   gate='every row equal' if strict else
+                   f'at least {CONTROL_AGREE_SHARE} of the rows equal',
+                   gate_rows=G, cpu_seconds=cpu_seconds, max_abs_err=errs, within_rtol=close,
+                   equal=equal, rows_agreeing_share=agree_share,
+                   cpu_rows_unmoved_by_perturbation_share=cpu_self_share,
+                   perturbation=CONTROL_PERTURB, reeval_max_rel_err=reeval_err,
+                   reeval_rows=B_CONTROL, reeval_cpu_seconds=reeval_seconds,
+                   gain_card_vs_cpu=float(np.abs(ctrl.gain - cpu.gain).max()), card=smi)
+        rows[f'ilqr {name}'] = row
+        emit('control', part='ilqr solve_batch', **row)
+        if not np.isfinite(out['cost']).all():
+            raise RuntimeError(f'control ilqr {name}: a cost is not finite')
+        if moved[kname] != ctrl.max_iterations * T or sum(moved.values()) != moved[kname]:
+            raise RuntimeError(f'control ilqr {name}: launches {moved}, expected '
+                               f'{ctrl.max_iterations * T} of {kname} alone')
+        if not reeval_err <= CONTROL_RTOL:
+            raise RuntimeError(f'control ilqr {name}: the card\'s policies cost otherwise in a '
+                               f'CPU rollout: {reeval_err}')
+        if strict and not (all(close.values()) and all(equal.values())):
+            raise RuntimeError(f'control ilqr {name}: the card\'s solve differs from the CPU\'s '
+                               f'on the first {G} problems: {errs} {equal}')
+        if not strict and not agree_share >= CONTROL_AGREE_SHARE:
+            raise RuntimeError(f'control ilqr {name}: {agree_share} of the first {G} problems '
+                               f'agree with the CPU\'s solve (gate {CONTROL_AGREE_SHARE})')
+    # LQR on the cartpole stab example, card and CPU each in its own loop.
+    env_id, task, algo = control_config('lqr', 'cartpole', 'stab')
+    task = dict(task, randomized_init=False, init_state={'init_x': 0.3, 'init_theta': 0.05})
+    runs = {}
+    for d in (dev, 'cpu'):
+        ctrl = make('lqr', functools.partial(make, env_id, device=d, **task), **algo)
+        t0 = time.perf_counter()
+        runs[str(d)] = (*_closed_loop_record(ctrl, make(env_id, device=d, **task)),
+                        time.perf_counter() - t0, ctrl.gain)
+    (cs, _, ca, c_sec, c_gain), (hs, _, ha, h_sec, h_gain) = runs[str(dev)], runs['cpu']
+    same_len = cs.shape == hs.shape
+    row = dict(system='cartpole', source='examples/lqr/config_overrides/cartpole/'
+               'lqr_cartpole_stab.yaml', steps=len(ca), n_substeps=50, seconds=c_sec,
+               cpu_seconds=h_sec, state_max_abs_err=float(np.abs(cs - hs).max())
+               if same_len else None, action_max_abs_err=float(np.abs(ca - ha).max())
+               if same_len else None, gain_card_vs_cpu=float(np.abs(c_gain - h_gain).max()),
+               atol=CONTROL_ATOL, card=smi)
+    rows['lqr cartpole'] = row
+    emit('control', part='lqr closed loop, card against CPU', **row)
+    if not (same_len and row['state_max_abs_err'] <= CONTROL_ATOL):
+        raise RuntimeError(f'control lqr cartpole: card and CPU loops differ: {row}')
+    # PID on the 3D tracking example: the card's loop recorded, then the CPU's
+    # PID on its observations and the CPU's env on each of its steps (the
+    # loop, and a replay of its actions, amplify float32 rounding: see
+    # tests/test_torch_control.py).
+    env_id, task, algo = control_config('pid', 'quadrotor_3D', 'track')
+    task = dict(task, randomized_init=False, init_state={'init_z': 1.0})
+    ctrl = make('pid', functools.partial(make, env_id, device=dev, **task), **algo)
+    t0 = time.perf_counter()
+    obs, infos, actions = _closed_loop_record(ctrl, make(env_id, device=dev, **task))
+    seconds = time.perf_counter() - t0
+    cpu = make('pid', functools.partial(make, env_id, device='cpu', **task), **algo)
+    cpu_actions = np.array([cpu.select_action(o, i) for o, i in zip(obs[:-1], infos[:-1])])
+    # Each step of the CPU's env from the card's state under the card's action.
+    cpu_env = make(env_id, device='cpu', **task)
+    est, _ = cpu_env.func.reset_batch(cpu_env.generator, len(actions))
+    est = est.replace(state=torch.tensor(obs[:-1]),
+                      ctrl_step=torch.arange(len(actions), dtype=torch.int32))
+    cpu_next = cpu_env.func.step(est, torch.tensor(actions, dtype=torch.float32))[1].obs
+    row = dict(system='quadrotor_3D', source='examples/pid/config_overrides/quadrotor_3D/'
+               'quadrotor_3D_track.yaml', steps=len(actions), n_substeps=20, seconds=seconds,
+               action_max_abs_err=float(np.abs(cpu_actions - actions).max()),
+               state_max_abs_err=float(np.abs(cpu_next.numpy() - obs[1:]).max()),
+               compared='each step from the card\'s state and action', atol=CONTROL_ATOL,
+               card=smi)
+    rows['pid quadrotor_3D'] = row
+    emit('control', part='pid closed loop, card against CPU', **row)
+    if not (row['state_max_abs_err'] <= CONTROL_ATOL and row['action_max_abs_err'] <= CONTROL_ATOL):
+        raise RuntimeError(f'control pid quadrotor_3D: card and CPU differ: {row}')
+    launches = {fn.__name__: fn.launches for fn in _counters()}
+    emit('control', launches=launches)
+    for m in PHYSICS.values():
+        if launches[m['name']] <= 0:
+            raise RuntimeError(f'the control path never launched {m["name"]}')
+    # torch.profiler over one more cartpole solve: the device's busy share.
+    ctrl = ctrls['cartpole']
+    x0s = np.repeat(ctrl.env._nominal_init_state()[None], B_CONTROL, axis=0)
+    wall, busy, n_kernels = _profiled(lambda: ctrl.solve_batch(x0s))
+    rows['trace'] = dict(window=f'one cartpole solve_batch, B={B_CONTROL}, under torch.profiler',
+                         seconds=wall, device_busy_s=busy, kernels=n_kernels,
+                         device_busy_share=busy / wall, card=smi)
+    emit('control', part='trace', **rows['trace'])
+    rows['checks'] = checks
+    emit('control', part='done', seconds=time.perf_counter() - t_phase, card=smi)
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1064,6 +1346,7 @@ def main():
     cl_launches, cl_rows = closed_loop(dev, smi)
     welch_closed_loop(dev)
     train = ppo_train(dev, smi)
+    ctl_launches, ctl_rows = control(dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -1091,6 +1374,15 @@ def main():
         row['train_shape'] = (f'B={tr["envs"]} T={tr["T"]} x {tr["iterations"]} PPO '
                               'iterations' + (' + 10-episode eval' if system == 'cartpole'
                                               else ''))
+        row['control_launches'] = ctl_launches[PHYSICS[system]['name']]
+        row['control_shape'] = {
+            'cartpole': (f'iLQR solve_batch B={B_CONTROL} T={ctl_rows["ilqr cartpole"]["T"]} '
+                         f'x 10 iterations, 50 substeps + LQR closed loop B=1 '
+                         f'({ctl_rows["lqr cartpole"]["steps"]} steps)'),
+            'quadrotor': (f'iLQR solve_batch B={B_CONTROL} T={ctl_rows["ilqr quadrotor_2D"]["T"]}'
+                          ' x 10 iterations, 4 substeps'),
+            'quadrotor_3D': (f'PID closed loop B=1 ({ctl_rows["pid quadrotor_3D"]["steps"]} '
+                             'steps, 20 substeps)')}[system]
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

@@ -1,8 +1,18 @@
-"""Controllers of the port, registered at import time: PPO, SAC and DDPG at
-inference (their training and the other controllers come with later slices)."""
+"""Controllers of the port, registered at import time: LQR, iLQR and PID;
+PPO (with training), SAC and DDPG (at inference; their training and the other
+controllers come with later slices)."""
 
 from safe_control_gym_tpu_torch.utils.registration import register
 
+register(idx='lqr',
+         entry_point='safe_control_gym_tpu_torch.controllers.lqr.lqr:LQR',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.lqr:lqr.json')
+register(idx='ilqr',
+         entry_point='safe_control_gym_tpu_torch.controllers.lqr.ilqr:iLQR',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.lqr:ilqr.json')
+register(idx='pid',
+         entry_point='safe_control_gym_tpu_torch.controllers.pid.pid:PID',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.pid:pid.json')
 register(idx='ppo',
          entry_point='safe_control_gym_tpu_torch.controllers.ppo.ppo:PPO',
          config_entry_point='safe_control_gym_tpu_torch.controllers.ppo:ppo.json')

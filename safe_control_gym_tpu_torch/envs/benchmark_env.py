@@ -13,8 +13,10 @@ also takes the channel noise pre-drawn (``drawn``), in the role of the JAX
 drawn-mode step, so a caller can feed it the exact noise another
 implementation drew.
 
-Not in this slice: the viewer and render, the symbolic model, randomized
-inertial properties and the adversary channel.
+The reset info carries the env's prior model, ``env.symbolic``
+(``envs/symbolic.py``), which each env builds in ``_setup_symbolic``. Not in
+this slice: the viewer and render, randomized inertial properties and the
+adversary channel.
 """
 
 from __future__ import annotations
@@ -319,6 +321,9 @@ class BenchmarkEnv:
     def _mse(self, state, step):
         raise NotImplementedError
 
+    def _setup_symbolic(self, prior_prop={}, **kwargs):
+        raise NotImplementedError
+
     def _obs_transform(self, state):
         """State -> observation before noise and goal extension."""
         return state
@@ -572,6 +577,7 @@ class BenchmarkEnv:
 
     def _get_reset_info(self) -> Dict[str, Any]:
         info: Dict[str, Any] = {
+            'symbolic_model': self.symbolic,
             'physical_parameters': self._physical_parameters(),
             'x_reference': self.X_GOAL,
             'u_reference': self.U_GOAL,

@@ -1,7 +1,6 @@
 """CartPole: the cartpole stabilization / tracking task, batched, in PyTorch.
 
-Port of ``safe_control_gym_tpu/envs/cartpole.py`` without the symbolic model
-and the scene drawing. The physics advance of a batch goes through
+Port of ``safe_control_gym_tpu/envs/cartpole.py`` without the scene drawing. The physics advance of a batch goes through
 ``ops.physics_kernels.cartpole_advance`` (K1): its CUDA kernel for a batch on
 the card, its plain version for a batch on the CPU. That is the role the JAX
 package's ``custom_vmap`` rule plays for its Pallas kernel.
@@ -23,8 +22,9 @@ import torch
 from safe_control_gym_tpu_torch.envs import constraints as constraints_mod
 from safe_control_gym_tpu_torch.envs.benchmark_env import (BenchmarkEnv, Cost, Task,
                                                            _compile_rand_sampler)
-from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams
+from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams, cartpole_dynamics
 from safe_control_gym_tpu_torch.envs.spaces import Box
+from safe_control_gym_tpu_torch.envs.symbolic import AnalyticModel
 from safe_control_gym_tpu_torch.math.linalg import get_cost_weight_matrix
 from safe_control_gym_tpu_torch.math.rotations import normalize_angle
 from safe_control_gym_tpu_torch.ops.physics_kernels import cartpole_advance
@@ -123,6 +123,7 @@ class CartPole(BenchmarkEnv):
         self._set_action_space()
         self._set_observation_space()
         self._setup_task_references()
+        self._setup_symbolic()
         self._setup_constraints()
         self._setup_disturbances()
         self._init_sampler = _compile_rand_sampler(
@@ -185,6 +186,24 @@ class CartPole(BenchmarkEnv):
                 POS_REF[:, 0], VEL_REF[:, 0],
                 np.zeros(POS_REF.shape[0]), np.zeros(VEL_REF.shape[0]),
             ]).T
+
+    # ------------------------------------------------------------------
+    # Symbolic prior
+    # ------------------------------------------------------------------
+    def _setup_symbolic(self, prior_prop={}, **kwargs):
+        """``self.symbolic``: the analytic model with the nominal inertial
+        properties, or those ``prior_prop`` overrides."""
+        length = prior_prop.get('pole_length', self.EFFECTIVE_POLE_LENGTH)
+        m = prior_prop.get('pole_mass', self.POLE_MASS)
+        M = prior_prop.get('cart_mass', self.CART_MASS)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
+        params = CartPoleParams(pole_length=f32(length), pole_mass=f32(m),
+                                cart_mass=f32(M), gravity=f32(self.GRAVITY_ACC))
+        self.symbolic = AnalyticModel(
+            dyn_fn=lambda x, u: cartpole_dynamics(x, u, params),
+            nx=4, nu=1, dt=self.CTRL_TIMESTEP, device=self.device,
+            params={'pole_length': length, 'pole_mass': m, 'cart_mass': M,
+                    'X_EQ': np.zeros(4), 'U_EQ': np.atleast_2d(self.U_GOAL)[0, :]})
 
     # ------------------------------------------------------------------
     # Functional-core hooks (batched)

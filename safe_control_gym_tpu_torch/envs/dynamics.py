@@ -1,15 +1,17 @@
 """Analytic cartpole dynamics, the quadrotor motor model and the integrators, in PyTorch.
 
-Port of ``safe_control_gym_tpu/envs/dynamics.py`` without the quadrotor ODEs:
-``CartPoleParams``, ``QuadParams``, ``cartpole_dynamics``,
-``cartpole_dynamics_forced``, the motor model ``cmd2pwm``, ``pwm2rpm`` and
-``rpm2forces``, and the integrators ``rk4_step``, ``euler_step``,
-``symplectic_euler_step`` and ``integrate_substeps``. The quadrotor ODEs
-``quad{1d,2d,3d}_dynamics`` serve only the symbolic model and come with it.
+Port of ``safe_control_gym_tpu/envs/dynamics.py``: ``CartPoleParams``,
+``QuadParams``, ``cartpole_dynamics``, ``cartpole_dynamics_forced``, the
+quadrotor ODEs ``quad1d_dynamics``, ``quad2d_dynamics`` and
+``quad3d_dynamics`` (the symbolic model's priors), the motor model
+``cmd2pwm``, ``pwm2rpm`` and ``rpm2forces``, and the integrators ``rk4_step``,
+``euler_step``, ``symplectic_euler_step`` and ``integrate_substeps``.
 
 Every function takes states with any number of leading batch dimensions,
 (..., 4) for the cartpole, where the JAX versions act on one state under
-``vmap``. ``integrate_substeps`` is a Python loop where JAX has ``lax.scan``.
+``vmap``. The ODEs do no in-place update and no host read, so
+``torch.func.jacfwd`` and ``vmap`` trace them. ``integrate_substeps`` is a
+Python loop where JAX has ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ from typing import Callable
 
 import torch
 
+from safe_control_gym_tpu_torch.math.rotations import rot_xyz, skew
+
 __all__ = [
     'CartPoleParams', 'QuadParams', 'cartpole_dynamics',
-    'cartpole_dynamics_forced', 'cmd2pwm', 'pwm2rpm', 'rpm2forces',
+    'cartpole_dynamics_forced', 'quad1d_dynamics', 'quad2d_dynamics',
+    'quad3d_dynamics', 'cmd2pwm', 'pwm2rpm', 'rpm2forces',
     'rk4_step', 'euler_step', 'symplectic_euler_step', 'integrate_substeps',
 ]
 
@@ -129,6 +134,74 @@ def cartpole_dynamics_forced(x, u, tab_force, p: CartPoleParams):
     x_ddot = (a22 * b1 - a12 * b2) / det
     theta_ddot = (a11 * b2 - a12 * b1) / det
     return torch.stack([x_dot, x_ddot, theta_dot, theta_ddot], dim=-1)
+
+
+def _sqrt2(t):
+    """sqrt(2) rounded to float32 as a 0-d tensor on ``t``'s device, divided
+    by as a tensor so that the quotient is a true division (as
+    ``jnp.sqrt(2.0)``'s), not a multiplication by a rounded reciprocal."""
+    return torch.sqrt(torch.tensor(2.0, dtype=torch.float32, device=t.device))
+
+
+def quad1d_dynamics(x, u, p: QuadParams):
+    """1D quadrotor: state [z, z_dot], input [total thrust T];
+    z_ddot = T/m - g."""
+    return torch.stack([x[..., 1], u[..., 0] / p.mass - p.gravity], dim=-1)
+
+
+def quad2d_dynamics(x, u, p: QuadParams):
+    """Planar quadrotor: state [x, x_dot, z, z_dot, theta, theta_dot], input
+    [T1, T2] (the rotor-pair thrusts):
+    x_ddot = sin(theta) (T1+T2)/m, z_ddot = cos(theta) (T1+T2)/m - g,
+    theta_ddot = L (T2 - T1) / (Iyy sqrt(2))."""
+    theta = x[..., 4]
+    T1, T2 = u[..., 0], u[..., 1]
+    total = (T1 + T2) / p.mass
+    x_ddot = torch.sin(theta) * total
+    z_ddot = torch.cos(theta) * total - p.gravity
+    theta_ddot = p.arm_length * (T2 - T1) / p.Iyy / _sqrt2(x)
+    return torch.stack([x[..., 1], x_ddot, x[..., 3], z_ddot, x[..., 5], theta_ddot],
+                       dim=-1)
+
+
+def quad3d_dynamics(x, u, p: QuadParams):
+    """3D quadrotor rigid body with the CF2X mixer. State [x, x_dot, y, y_dot,
+    z, z_dot, phi, theta, psi, p, q, r] (body rates p, q, r), input the four
+    motor thrusts; the rotation R = Rz Ry Rx (SDFormat)."""
+    phi, theta, psi = x[..., 6], x[..., 7], x[..., 8]
+    omega = x[..., 9:12]
+    f = u
+    m, g, L = p.mass, p.gravity, p.arm_length
+    inertia = torch.stack([p.Ixx, p.Iyy, p.Izz])
+    J = torch.diag(inertia)
+    Jinv = torch.diag(1.0 / inertia)
+    gamma = p.km / p.kf
+    R = rot_xyz(phi, theta, psi)
+    zero = torch.zeros_like(f[..., 0])
+    thrust = torch.stack([zero, zero, f[..., 0] + f[..., 1] + f[..., 2] + f[..., 3]], dim=-1)
+    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype, device=x.device)
+    acc = (R @ thrust[..., None])[..., 0] / m - e3 * g
+    l_sq2 = L / _sqrt2(x)
+    Mb = torch.stack([
+        l_sq2 * (f[..., 0] + f[..., 1] - f[..., 2] - f[..., 3]),
+        l_sq2 * (-f[..., 0] + f[..., 1] + f[..., 2] - f[..., 3]),
+        gamma * (-f[..., 0] + f[..., 1] - f[..., 2] + f[..., 3]),
+    ], dim=-1)
+    Jw = (J @ omega[..., None])[..., 0]
+    gyro = (skew(omega) @ Jw[..., None])[..., 0]
+    rate_dot = (Jinv @ (Mb - gyro)[..., None])[..., 0]
+    # Euler-angle kinematics: body rates -> Euler rates.
+    sphi, cphi = torch.sin(phi), torch.cos(phi)
+    tth, cth = torch.tan(theta), torch.cos(theta)
+    one, zero_a = torch.ones_like(phi), torch.zeros_like(phi)
+    W = torch.stack([torch.stack([one, sphi * tth, cphi * tth], dim=-1),
+                     torch.stack([zero_a, cphi, -sphi], dim=-1),
+                     torch.stack([zero_a, sphi / cth, cphi / cth], dim=-1)], dim=-2)
+    ang_dot = (W @ omega[..., None])[..., 0]
+    return torch.cat([
+        torch.stack([x[..., 1], acc[..., 0], x[..., 3], acc[..., 1], x[..., 5],
+                     acc[..., 2]], dim=-1),
+        ang_dot, rate_dot], dim=-1)
 
 
 def cmd2pwm(thrust, p: QuadParams):

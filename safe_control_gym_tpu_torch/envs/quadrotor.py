@@ -1,7 +1,7 @@
 """Quadrotor: the 2D and 3D quadrotor stabilization / tracking tasks, batched, in PyTorch.
 
-Port of ``safe_control_gym_tpu/envs/quadrotor.py`` without the symbolic
-model and the scene drawing. The commanded thrusts pass through the motor
+Port of ``safe_control_gym_tpu/envs/quadrotor.py`` without the scene
+drawing. The commanded thrusts pass through the motor
 model (thrust -> PWM -> RPM -> per-motor forces, ``envs/dynamics.py``), so
 motor saturation is kept. The physics advance of a batch then goes through
 ``ops.physics_kernels.quad2d_advance`` (K2) or ``quad3d_advance`` (K3): the
@@ -36,8 +36,10 @@ from safe_control_gym_tpu_torch.envs import constraints as constraints_mod
 from safe_control_gym_tpu_torch.envs.benchmark_env import (BenchmarkEnv, Cost, Task,
                                                            _compile_rand_sampler)
 from safe_control_gym_tpu_torch.envs.dynamics import (QuadParams, cmd2pwm, pwm2rpm,
+                                                      quad2d_dynamics, quad3d_dynamics,
                                                       rpm2forces)
 from safe_control_gym_tpu_torch.envs.spaces import Box
+from safe_control_gym_tpu_torch.envs.symbolic import AnalyticModel
 from safe_control_gym_tpu_torch.math.linalg import get_cost_weight_matrix
 from safe_control_gym_tpu_torch.math.rotations import (normalize_angle,
                                                        transform_trajectory)
@@ -151,8 +153,6 @@ class Quadrotor(BenchmarkEnv):
         self.done_on_out_of_bound = done_on_out_of_bound
 
         nx, nu = _NX[self.QUAD_TYPE], _NU[self.QUAD_TYPE]
-        self.Q = get_cost_weight_matrix(self.rew_state_weight, nx)
-        self.R = get_cost_weight_matrix(self.rew_act_weight, nu)
         if info_mse_metric_state_weight is None:
             self.info_mse_metric_state_weight = np.array(_MSE_WEIGHT[self.QUAD_TYPE],
                                                          dtype=float)
@@ -235,6 +235,7 @@ class Quadrotor(BenchmarkEnv):
         self._set_action_space()
         self._set_observation_space()
         self._setup_task_references()
+        self._setup_symbolic()
         self._setup_constraints()
         self._setup_disturbances()
         self._init_sampler = _compile_rand_sampler(self.INIT_STATE_RAND_INFO, labels)
@@ -347,6 +348,34 @@ class Quadrotor(BenchmarkEnv):
         POS_T, VEL_T = POS_T.numpy(), VEL_T.numpy()
         self.X_GOAL = np.vstack([POS_T[:, 0], VEL_T[:, 0], POS_T[:, 1], VEL_T[:, 1],
                                  POS_T[:, 2], VEL_T[:, 2], z, z, z, z, z, z]).T
+
+    # ------------------------------------------------------------------
+    # Symbolic prior
+    # ------------------------------------------------------------------
+    def _setup_symbolic(self, prior_prop={}, **kwargs):
+        """``self.symbolic``: the analytic model of the 2D or 3D quad with the
+        nominal inertial properties, or those ``prior_prop`` overrides; also
+        the cost matrices ``Q`` and ``R``."""
+        m = prior_prop.get('M', self.MASS)
+        Iyy = prior_prop.get('Iyy', self.J[1, 1])
+        Ixx = prior_prop.get('Ixx', self.J[0, 0])
+        Izz = prior_prop.get('Izz', self.J[2, 2])
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
+        params = QuadParams(mass=f32(m), Ixx=f32(Ixx), Iyy=f32(Iyy), Izz=f32(Izz),
+                            arm_length=f32(self.L), kf=f32(self.KF), km=f32(self.KM),
+                            gravity=f32(self.GRAVITY_ACC)).to(self.device)
+        nx, nu = _NX[self.QUAD_TYPE], _NU[self.QUAD_TYPE]
+        ode = quad2d_dynamics if self.QUAD_TYPE == QuadType.TWO_D else quad3d_dynamics
+        self.Q = get_cost_weight_matrix(self.rew_state_weight, nx)
+        self.R = get_cost_weight_matrix(self.rew_act_weight, nu)
+        three_d = self.QUAD_TYPE == QuadType.THREE_D
+        self.symbolic = AnalyticModel(
+            dyn_fn=lambda x, u: ode(x, u, params), nx=nx, nu=nu, dt=self.CTRL_TIMESTEP,
+            device=self.device,
+            params={'quad_mass': m, 'quad_Iyy': Iyy,
+                    'quad_Ixx': Ixx if three_d else None,
+                    'quad_Izz': Izz if three_d else None,
+                    'X_EQ': np.zeros(nx), 'U_EQ': np.ones(nu) * m * self.GRAVITY_ACC / nu})
 
     # ------------------------------------------------------------------
     # Functional-core hooks (batched)

@@ -44,6 +44,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import safe_control_gym_tpu_torch.controllers.ppo.ppo\n'
             'import safe_control_gym_tpu_torch.controllers.sac.sac\n'
             'import safe_control_gym_tpu_torch.controllers.ddpg.ddpg\n'
+            'import safe_control_gym_tpu_torch.envs.symbolic\n'
+            'import safe_control_gym_tpu_torch.math.linalg\n'
+            'import safe_control_gym_tpu_torch.controllers.lqr.ilqr\n'
+            'import safe_control_gym_tpu_torch.controllers.pid.pid\n'
+            'import safe_control_gym_tpu_torch.experiments.control_configs\n'
             'from functools import partial\n'
             'from safe_control_gym_tpu_torch.utils.registration import make\n'
             'from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint\n'
@@ -51,6 +56,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             '    load_checkpoint("examples/rl/models/" + m)\n'
             'ctrl = make("ppo", partial(make, "cartpole", device="cpu"))\n'
             'ctrl.load("examples/rl/models/ppo/ppo_model_cartpole_stab.pt")\n'
+            'ilqr = make("ilqr", partial(make, "cartpole", device="cpu", cost="quadratic"),'
+            ' max_iterations=1)\n'
+            'ilqr.solve_batch(ilqr.env._nominal_init_state()[None])\n'
+            'make("pid", partial(make, "quadrotor", device="cpu"))\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)\n'
             'print(bad); sys.exit(1 if bad else 0)' % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -86,6 +95,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         benchmark_suite.measure_closed_loop_kernel('cartpole', batch=8, n_steps=8)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         make('sac', functools.partial(make, 'cartpole'))
+    for algo in ('lqr', 'ilqr', 'pid'):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            make(algo, functools.partial(make, 'quadrotor' if algo == 'pid' else 'cartpole'))
     ctrl = make('ppo', functools.partial(make, 'cartpole', device='cpu'))
     assert ctrl.device.type == 'cpu' and ctrl.agent.params['logstd'].device.type == 'cpu'
     from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import PPOAgent
