@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its
 kernels, then drive the batched cartpole and quadrotor rollouts, the
-closed-loop evaluation of the committed RL models, PPO training and the
-model-based controllers (LQR, iLQR, PID) through the port's entry points.
+closed-loop evaluation of the committed RL models, PPO training, the
+model-based controllers (LQR, iLQR, PID) and the MPC family (MPC, linear
+MPC, MPC_ACADOS) through the port's entry points.
 
     python3 chip_smoke.py
 
@@ -96,10 +97,36 @@ Phases, one JSON line each:
                loop recorded, the CPU's PID on its observations and the CPU's
                env stepped from each of its states under its action (1e-4); a
                torch.profiler window over one cartpole solve;
- 12. kernels   one entry per kernel with its launches, error, times and bound
+ 12. mpc       the gradient case: K1-K3's backward through the kernel
+               (``_PlainGrad``) against autograd through the plain twin on
+               the same card inputs, and examples/differentiable_sim_demo.py's
+               cost gradient (T=8) through the card's env against the CPU's;
+               K1 and K2 at the MPC loops' B=1 and substeps bit for bit
+               against their plain versions; then, every launch counter set
+               to 0 before and read after,
+               make('linear_mpc' | 'mpc' | 'mpc_acados', partial(make, env,
+               device='cuda', ...)) -> reset() -> run() on the examples'
+               configs at horizon 20: linear MPC on linear_mpc_quadrotor_2D_track
+               (300 steps, K2 at 20 substeps), MPC on mpc_cartpole_stab (3 SQP)
+               and MPC_ACADOS with RTI (90 steps each, K1 at 50 substeps), K1's
+               or K2's launches exactly the steps, each step gated against the
+               port's CPU controller fed the card's observation and warm start
+               (MPC_AGREE_SHARE of the actions within MPC_ATOL; every card
+               answer re-evaluated on the CPU: residual under the controller's
+               feasibility bound, cost within MPC_COST_RTOL), the card's
+               actions replayed through a card env with pallas_physics=False
+               (its states equal the loop's, 0.0), one step under
+               torch.profiler; select_action_batch at B_MPC on
+               examples/mpc/batched_mpc_demo.py's problem (seconds, solves/s,
+               converged share, ADMM iterations, peak memory, a torch.profiler
+               window), every card answer re-evaluated on the CPU (residual
+               under the feasibility bound), its first MPC_GATE_ROWS problems
+               against the port's CPU solve (actions, flags, costs);
+ 13. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
-               ppo_train, and control_launches and control_shape, from phase
-               control).
+               ppo_train, control_launches and control_shape, from phase
+               control, and mpc_launches, mpc_shape and grad_max_abs_err, from
+               phase mpc).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
@@ -171,6 +198,47 @@ ILQR_DEMO_TASK = dict(seed=0, cost='quadratic', task='stabilization',
                       task_info={'stabilization_goal': [0.5, 0.0],
                                  'stabilization_goal_tolerance': 0.0},
                       randomized_init=False, episode_len_sec=3, ctrl_freq=15, pyb_freq=750)
+
+# Phase mpc: K1 and K2 at the MPC loops' shapes (B=1; 50 substeps at dt
+# 1/750, 20 at 1/1000) bit for bit against their plain versions, on random
+# inputs and on each loop's own: the card loop's actions replayed through a
+# card env made with pallas_physics=False give its states exactly. The MPC
+# closed loops (B=1) card against the port's CPU controller fed the card's
+# observation and warm start at every step: at least MPC_AGREE_SHARE of the
+# steps' actions within MPC_ATOL, and every card answer re-evaluated on the
+# CPU (its horizon's dynamics defect and constraint violation under the
+# controller's own feasibility bound, its cost within MPC_COST_RTOL of the
+# CPU answer's). select_action_batch at B_MPC: every card answer
+# re-evaluated on the CPU (the residual of each problem flagged feasible
+# under its bound), its first MPC_GATE_ROWS problems against the port's CPU
+# solve (feasibility flags equal, MPC_AGREE_SHARE of the actions within
+# MPC_ATOL, costs within MPC_COST_RTOL). Runs on the H100 read every step and
+# row within 4.8e-5 and costs within 1.35e-5 (PERF.md); rounding can pick
+# another polish candidate (tests/test_torch_mpc.py: JAX's own action moves
+# by up to 2.8e-4 under 1e-7 changes of its input), which these gates
+# would report as a failure.
+MPC_ATOL = 1e-4
+MPC_AGREE_SHARE = 1.0
+MPC_COST_RTOL = 1e-4
+B_MPC = 4096
+MPC_GATE_ROWS = 64
+# examples/mpc/batched_mpc_demo.py's problem (horizon 20, 3 SQP iterations).
+MPC_DEMO_TASK = dict(seed=0, cost='quadratic', ctrl_freq=15, pyb_freq=750,
+                     constraints=[{'constraint_form': 'default_constraint',
+                                   'constrained_variable': 'input'}],
+                     task_info={'stabilization_goal': [0.0],
+                                'stabilization_goal_tolerance': 0.01},
+                     randomized_init=False)
+MPC_DEMO_ALGO = dict(q_mpc=[1], r_mpc=[0.1], horizon=20, sqp_iters=3)
+# The gradient case: K1-K3 backward through the kernel against autograd through
+# the plain twin on the same card inputs (relative to the gradient's largest
+# entry), and examples/differentiable_sim_demo.py's cost over GRAD_T actions,
+# card against CPU (GRAD_RTOL, tests/test_torch_grad.py's).
+GRAD_KERNEL_RTOL = 1e-6
+GRAD_RTOL = 1e-4
+GRAD_T = 8
+GRAD_DEMO = dict(seed=0, ctrl_freq=15, pyb_freq=750, init_state={'init_theta': 0.4},
+                 randomized_init=False, cost='quadratic')
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -1081,6 +1149,28 @@ def ppo_train(dev, smi):
     return rows
 
 
+def _bit_checks(dev, phase, cases):
+    """Each (system, batch, n_substeps, dt) of ``cases``: the kernel on random
+    inputs bit for bit against its plain version, and its time."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
+    rows = {}
+    for system, batch, n_sub, dt in cases:
+        meta = PHYSICS[system]
+        kernel, plain = getattr(pk, meta['name']), getattr(pk, meta['name'] + '_plain')
+        args = (*bs.physics_args(system, dev, batch, seed=4), n_sub, dt)
+        err = float((kernel(*args) - plain(*args)).abs().max())
+        torch.cuda.synchronize()
+        row = dict(kernel=meta['name'], B=batch, n_substeps=n_sub, max_abs_err=err, tol=0.0,
+                   ms=time_ms(lambda: kernel(*args), 200))
+        rows[f'{meta["id"]} B={batch} n_substeps={n_sub}'] = row
+        emit(phase, part=f'kernel at the {phase} substeps', **row)
+        if err != 0.0:
+            raise RuntimeError(f'{meta["id"]} at B={batch}, {n_sub} substeps disagrees with '
+                               f'its plain version: {err}')
+    return rows
+
+
 def _control_kernel_checks(dev):
     """K1 at 50 substeps (15 Hz over 750 Hz) and K2 at 4 (60 over 240), the
     counts of the control configs, bit for bit against their plain versions
@@ -1091,24 +1181,10 @@ def _control_kernel_checks(dev):
     inverse of H, for (B, 2, 2)."""
     import scipy.linalg as sla
     from safe_control_gym_tpu_torch.controllers.lqr.ilqr import _regularized_inverse
-    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
     from safe_control_gym_tpu_torch.math import linalg
-    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
-    rows = {}
-    for system, n_sub, dt in (('cartpole', 50, 1.0 / 750), ('quadrotor', 4, 1.0 / 240)):
-        meta = PHYSICS[system]
-        kernel, plain = getattr(pk, meta['name']), getattr(pk, meta['name'] + '_plain')
-        for batch in (B, 1):
-            args = (*bs.physics_args(system, dev, batch, seed=4), n_sub, dt)
-            err = float((kernel(*args) - plain(*args)).abs().max())
-            torch.cuda.synchronize()
-            row = dict(kernel=meta['name'], B=batch, n_substeps=n_sub, max_abs_err=err, tol=0.0,
-                       ms=time_ms(lambda: kernel(*args), 200))
-            rows[f'{meta["id"]} B={batch} n_substeps={n_sub}'] = row
-            emit('control', part='kernel at the control substeps', **row)
-            if err != 0.0:
-                raise RuntimeError(f'{meta["id"]} at {n_sub} substeps disagrees with its plain '
-                                   f'version: {err}')
+    rows = _bit_checks(dev, 'control', [(system, batch, n_sub, dt) for system, n_sub, dt in
+                                        (('cartpole', 50, 1.0 / 750), ('quadrotor', 4, 1.0 / 240))
+                                        for batch in (B, 1)])
     rng = np.random.default_rng(0)
     systems = [(rng.standard_normal((4, 4)) * 0.5, rng.standard_normal((4, 2)))
                for _ in range(4)]
@@ -1319,6 +1395,296 @@ def control(dev, smi):
     return launches, rows
 
 
+def _grad_case(dev):
+    """K1-K3's gradient through the kernel (``_PlainGrad``) against autograd
+    through the plain twin on the same card inputs, and the demo's cost
+    gradient through the card's env against the CPU's."""
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    from safe_control_gym_tpu_torch.ops import physics_kernels as pk
+    from safe_control_gym_tpu_torch.utils.registration import make
+
+    def grads(fn, args):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves, N_SUB, DT)
+        w = torch.linspace(0.5, 1.5, out.numel(), device=out.device).reshape(out.shape)
+        (out * w).sum().backward()
+        return [leaf.grad for leaf in leaves]
+
+    rows = {}
+    for system, meta in PHYSICS.items():
+        kernel, plain = getattr(pk, meta['name']), getattr(pk, meta['name'] + '_plain')
+        args = bs.physics_args(system, dev, B, seed=5)
+        before = kernel.launches
+        g_kernel = grads(kernel, args)
+        launched = kernel.launches - before
+        g_plain = grads(plain, args)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(g_kernel, g_plain))
+        scale = max(float(b.abs().max()) for b in g_plain)
+        row = dict(kernel=meta['name'], B=B, n_substeps=N_SUB, launches=launched,
+                   max_abs_err=err, grad_max=scale, rtol=GRAD_KERNEL_RTOL)
+        rows[meta['id']] = row
+        emit('mpc', part='gradient through the kernel against the plain twin', **row)
+        if launched != 1 or not err <= GRAD_KERNEL_RTOL * scale:
+            raise RuntimeError(f'{meta["id"]}\'s gradient differs from its twin\'s: {row}')
+
+    actions = np.random.default_rng(0).uniform(-2.0, 2.0, (GRAD_T, 1)).astype(np.float32)
+
+    def demo(device):
+        env = make('cartpole', device=device, **GRAD_DEMO)
+        w = torch.tensor([1.0, 0.1, 5.0, 0.1], device=env.device)
+        a = torch.tensor(actions, device=env.device, requires_grad=True)
+        est, _ = env.func.reset_batch(env.generator, 1)
+        cost = torch.zeros((), device=env.device)
+        for t in range(GRAD_T):
+            est, _ = env.func.step(est, a[t][None])
+            cost = cost + (w * est.state[0] ** 2).sum() + 0.001 * (a[t] ** 2).sum()
+        cost.backward()
+        return float(cost.detach()), a.grad.cpu().numpy()
+    before = pk.cartpole_advance.launches
+    c_cost, c_grad = demo(dev)
+    launched = pk.cartpole_advance.launches - before
+    h_cost, h_grad = demo('cpu')
+    err = float(np.abs(c_grad - h_grad).max())
+    row = dict(source='examples/differentiable_sim_demo.py', T=GRAD_T, n_substeps=50,
+               k1_launches=launched, cost_card=c_cost, cost_cpu=h_cost,
+               grad_max_abs_err=err, grad_max=float(np.abs(h_grad).max()), rtol=GRAD_RTOL)
+    rows['demo'] = row
+    emit('mpc', part='gradient of the demo cost, card env against CPU env', **row)
+    if launched != GRAD_T or not (abs(c_cost - h_cost) <= GRAD_RTOL * abs(h_cost)
+                                  and err <= GRAD_RTOL * row['grad_max']
+                                  and row['grad_max'] > 0):
+        raise RuntimeError(f'mpc: the card env\'s gradient differs from the CPU\'s: {row}')
+    return rows
+
+
+def _set_warm(ctrl, warm):
+    ctrl.x_prev, ctrl.u_prev, ctrl._qp_warm = warm if warm is not None else (None,) * 3
+
+
+def _mpc_run(ctrl):
+    """``ctrl.run()``, each step's inputs recorded: the observation, the info
+    and the warm start the controller held, and its answer."""
+    record = []
+    select = ctrl.select_action
+
+    def recording(obs, info=None):
+        warm = None if ctrl.x_prev is None else (
+            ctrl.x_prev.copy(), np.array(ctrl.u_prev), tuple(np.array(a) for a in ctrl._qp_warm))
+        action = select(obs, info)
+        record.append(dict(obs=np.array(obs), info=info, warm=warm, action=np.array(action),
+                           x=ctrl.x_prev.copy(), u=np.array(ctrl.u_prev)))
+        return action
+    ctrl.select_action = recording
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ctrl.run()
+    wall = time.perf_counter() - t0
+    del ctrl.select_action
+    return res, record, wall
+
+
+def _mpc_reeval(ctrl, obs, goal, X, U):
+    """The NLP residual (the horizon's dynamics defect under ``ctrl``'s
+    dynamics, its initial-state error and constraint violation) and the cost
+    of B horizons X (B, T+1, nx) and U (B, T, nu) from the observations obs
+    (B, nx) toward goal (nx, T+1), on ``ctrl``'s device: two (B,) arrays."""
+    nx, nu, T = ctrl.model.nx, ctrl.model.nu, ctrl.T
+    X = np.asarray(X, np.float32)
+    U = np.asarray(U, np.float32).reshape(-1, T, nu)
+    Xt, Ut = torch.tensor(X), torch.tensor(U)
+    n = X.shape[0]
+    fx = torch.func.vmap(ctrl.dynamics_func)(Xt[:, :-1].reshape(-1, nx), Ut.reshape(-1, nu))
+    res = np.maximum(np.abs(fx.numpy().reshape(n, T, nx) - X[:, 1:]).max(axis=(1, 2)),
+                     np.abs(X[:, 0] - obs[:, :nx]).max(axis=1))
+    for fns, V in ((ctrl.state_constraints_sym, Xt), (ctrl.input_constraints_sym, Ut)):
+        for f in fns:
+            res = np.maximum(res, f(V.reshape(-1, V.shape[-1])).reshape(n, -1).amax(1).numpy())
+    dx = X - goal.T
+    du = U - ctrl.U_EQ
+    Qs, Rs = getattr(ctrl, 'Q_stage', ctrl.Q), getattr(ctrl, 'R_stage', ctrl.R)
+    Qterm = ctrl.P if ctrl.use_lqr_gain_and_terminal_cost else ctrl.Q
+    cost = 0.5 * (np.einsum('bki,ij,bkj->b', dx[:, :-1], Qs, dx[:, :-1])
+                  + np.einsum('bi,ij,bj->b', dx[:, -1], Qterm, dx[:, -1])
+                  + np.einsum('bki,ij,bkj->b', du, Rs, du))
+    return res, cost
+
+
+def _mpc_gate(cpu, record):
+    """Each recorded card step against ``cpu`` (the port's controller on the
+    CPU) fed the same observation and warm start: action errors, and the
+    card's and the CPU's answers re-evaluated on the CPU."""
+    rows = []
+    t0 = time.perf_counter()
+    nu, T = cpu.model.nu, cpu.T
+    for step in record:
+        _set_warm(cpu, step['warm'])
+        action = cpu.select_action(step['obs'], step['info'])
+        goal = cpu.get_references(cpu.extract_step(step['info']))
+        obs = np.asarray(step['obs'], np.float32)[None]
+        (res_card, res_cpu), (cost_card, cost_cpu) = _mpc_reeval(
+            cpu, np.repeat(obs, 2, axis=0), goal, np.stack([step['x'].T, cpu.x_prev.T]),
+            np.stack([np.reshape(u, (nu, T)).T for u in (step['u'], cpu.u_prev)]))
+        bound = cpu.feas_tol * float(cpu._feas_scale(obs, goal)[0])
+        rows.append((float(np.abs(action - step['action']).max()), res_card, res_cpu, bound,
+                     abs(cost_card - cost_cpu) / max(1.0, abs(cost_cpu))))
+    err, res_card, res_cpu, bound, cost_err = np.array(rows).T
+    return dict(steps=len(rows), cpu_seconds=time.perf_counter() - t0,
+                action_max_abs_err=float(err.max()),
+                steps_within_atol_share=float((err <= MPC_ATOL).mean()),
+                steps_beyond_atol=[int(k) for k in np.flatnonzero(err > MPC_ATOL)],
+                reeval_residual_card_max=float(res_card.max()),
+                reeval_residual_cpu_max=float(res_cpu.max()),
+                reeval_residual_over_bound_max=float((res_card / bound).max()),
+                reeval_cost_rel_err_max=float(cost_err.max()),
+                ok=bool((err <= MPC_ATOL).mean() >= MPC_AGREE_SHARE
+                        and (res_card <= bound).all() and (cost_err <= MPC_COST_RTOL).all()))
+
+
+def _mpc_replay(env_id, task_cfg, dev, res):
+    """The card loop's actions replayed through a card env made with
+    ``pallas_physics=False`` (K1's or K2's plain twin in place of the kernel),
+    from its reset: the largest difference of its states from the loop's."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env = make(env_id, device=dev, pallas_physics=False, **task_cfg)
+    env.reset()
+    states = [np.array(env.state)]
+    for action in res['action']:
+        env.step(action)
+        states.append(np.array(env.state))
+    env.close()
+    return float(np.abs(np.stack(states) - res['state']).max())
+
+
+def mpc(dev, smi):
+    """The slice's main path: make('linear_mpc' | 'mpc' | 'mpc_acados',
+    partial(make, env, device='cuda', ...)) -> reset() -> run() through the
+    entry points, K1 or K2 stepping every closed loop, and select_action_batch
+    at B_MPC; see the module docstring."""
+    from safe_control_gym_tpu_torch.controllers.mpc.mpc_utils import compute_state_rmse
+    from safe_control_gym_tpu_torch.experiments.control_configs import control_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    t_phase = time.perf_counter()
+    rows = {'gradient': _grad_case(dev),
+            'checks': _bit_checks(dev, 'mpc', [('cartpole', 1, 50, 1.0 / 750),
+                                               ('quadrotor', 1, 20, 1.0 / 1000)])}
+    loops = [('linear_mpc', 'quadrotor_2D', 'track', 'quad2d_advance'),
+             ('mpc', 'cartpole', 'stab', 'cartpole_advance'),
+             ('mpc_acados', 'cartpole', 'stab', 'cartpole_advance')]
+    ctrls = {}
+    for algo, system, task, _ in loops:
+        env_id, task_cfg, algo_cfg = control_config(algo, system, task)
+        ctrls[algo] = [make(algo, functools.partial(make, env_id, device=d, **task_cfg),
+                            **algo_cfg) for d in (dev, 'cpu')]
+        for c in ctrls[algo]:
+            c.reset()
+    # One batch of two problems first: torch.func's first use is set-up.
+    ctrls['mpc'][0].select_action_batch(np.zeros((2, 4), np.float32))
+    for fn in _counters():
+        fn.launches = 0
+    for algo, system, task, kname in loops:
+        env_id, task_cfg, _ = control_config(algo, system, task)
+        card_ctrl, cpu = ctrls[algo]
+        before = {fn.__name__: fn.launches for fn in _counters()}
+        res, record, wall = _mpc_run(card_ctrl)
+        moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+        steps = len(res['action'])
+        state_rmse, total_rmse = compute_state_rmse(np.array(res['state_error']))
+        gate = _mpc_gate(cpu, record)
+        gate['replay_plain_max_abs_err'] = _mpc_replay(env_id, task_cfg, dev, res)
+        qp_its = torch.stack(card_ctrl.qp_iterations).cpu().numpy().ravel().tolist()
+        row = dict(algo=algo, system=system, task=task,
+                   source=f'examples/mpc/config_overrides/{system}/{algo}_{system}_{task}.yaml',
+                   horizon=card_ctrl.T, sqp_iters=card_ctrl.sqp_iters, n_z=card_ctrl._n_z,
+                   m_rows=card_ctrl._m_rows, n_substeps=card_ctrl.env.PYB_STEPS_PER_CTRL,
+                   steps=steps, episode_len=card_ctrl.env.CTRL_STEPS, wall_s=wall,
+                   ms_per_step_median=1e3 * float(np.median(res['t_wall'])),
+                   ms_per_step_mean=1e3 * float(np.mean(res['t_wall'])),
+                   tracking_rmse=float(total_rmse), state_rmse=state_rmse.tolist(),
+                   last_qp_admm_iterations=qp_its, launches=moved, gate=gate,
+                   agree_share_gate=MPC_AGREE_SHARE, atol=MPC_ATOL, cost_rtol=MPC_COST_RTOL,
+                   card=smi)
+        # One more step under torch.profiler: kernels a control step and the
+        # device's busy share.
+        step = record[len(record) // 2]
+        _set_warm(card_ctrl, step['warm'])
+        p_wall, p_busy, p_kernels = _profiled(lambda: card_ctrl.select_action(step['obs'],
+                                                                              step['info']))
+        row['trace'] = dict(window='one select_action under torch.profiler', seconds=p_wall,
+                            device_busy_s=p_busy, kernels=p_kernels,
+                            device_busy_share=p_busy / p_wall)
+        rows[algo] = row
+        emit('mpc', part='closed loop, card against CPU', **row)
+        if moved[kname] != steps or sum(moved.values()) != steps:
+            raise RuntimeError(f'mpc {algo}: launches {moved}, expected {steps} of {kname} alone')
+        if steps < 1 or not np.isfinite(total_rmse):
+            raise RuntimeError(f'mpc {algo}: no finite closed loop: {steps} steps, rmse {total_rmse}')
+        if not (gate['ok'] and gate['replay_plain_max_abs_err'] == 0.0):
+            raise RuntimeError(f'mpc {algo}: the card\'s loop fails its gate: {gate}')
+    launches = {fn.__name__: fn.launches for fn in _counters()}
+    emit('mpc', launches=launches)
+    for name in ('cartpole_advance', 'quad2d_advance'):
+        if launches[name] <= 0:
+            raise RuntimeError(f'the mpc path never launched {name}')
+    # select_action_batch at B_MPC on the batched demo's problem.
+    card_ctrl, cpu = (make('mpc', functools.partial(make, 'cartpole', device=d, **MPC_DEMO_TASK),
+                           **MPC_DEMO_ALGO) for d in (dev, 'cpu'))
+    card_ctrl.reset()
+    cpu.reset()
+    x0s = np.random.default_rng(0).uniform(-0.3, 0.3, (B_MPC, 4)).astype(np.float32)
+    card_ctrl.select_action_batch(x0s[:2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u, feasible = card_ctrl.select_action_batch(x0s)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    its = torch.stack(card_ctrl.qp_iterations).cpu().numpy()
+    X_c, U_c = (t.cpu().numpy() for t in card_ctrl.batch_horizons)
+    G = MPC_GATE_ROWS
+    t0 = time.perf_counter()
+    u_h, f_h = cpu.select_action_batch(x0s[:G])
+    cpu_seconds = time.perf_counter() - t0
+    err = np.abs(u[:G] - u_h).max(axis=1)
+    # Every card answer, and the CPU's, re-evaluated on the CPU.
+    goal = cpu.get_references(0)
+    res_card, cost_card = _mpc_reeval(cpu, x0s, goal, X_c, U_c)
+    res_cpu, cost_cpu = _mpc_reeval(cpu, x0s[:G], goal,
+                                    *(t.numpy() for t in cpu.batch_horizons))
+    bound = cpu.feas_tol * cpu._feas_scale(x0s, goal)
+    cost_err = np.abs(cost_card[:G] - cost_cpu) / np.maximum(1.0, np.abs(cost_cpu))
+    b_wall, b_busy, b_kernels = _profiled(lambda: card_ctrl.select_action_batch(x0s))
+    row = dict(source='examples/mpc/batched_mpc_demo.py', B=B_MPC, horizon=card_ctrl.T,
+               sqp_iters=card_ctrl.sqp_iters, n_z=card_ctrl._n_z, m_rows=card_ctrl._m_rows,
+               seconds=seconds, solves_per_s=B_MPC / seconds,
+               converged_share=float(feasible.mean()),
+               admm_iterations_per_qp_max=its.max(axis=1).tolist(),
+               admm_iterations_per_qp_mean=its.mean(axis=1).tolist(),
+               peak_memory_bytes=int(peak), gate_rows=G, cpu_seconds=cpu_seconds,
+               action_max_abs_err=float(err.max()),
+               rows_within_atol_share=float((err <= MPC_ATOL).mean()),
+               flags_equal=bool(np.array_equal(feasible[:G], f_h)),
+               reeval_rows=B_MPC, reeval_feasible_rows_over_bound=int(
+                   (res_card[feasible] > bound[feasible]).sum()),
+               reeval_residual_over_bound_max=float((res_card / bound)[feasible].max()),
+               reeval_residual_cpu_max=float(res_cpu.max()),
+               reeval_cost_rel_err_max=float(cost_err.max()),
+               agree_share_gate=MPC_AGREE_SHARE, atol=MPC_ATOL, cost_rtol=MPC_COST_RTOL,
+               trace=dict(window=f'one select_action_batch, B={B_MPC}, under torch.profiler',
+                          seconds=b_wall, device_busy_s=b_busy, kernels=b_kernels,
+                          device_busy_share=b_busy / b_wall),
+               card=smi)
+    rows['batch'] = row
+    emit('mpc', part='select_action_batch', **row)
+    if not (np.isfinite(u).all() and row['flags_equal'] and feasible.any()
+            and row['rows_within_atol_share'] >= MPC_AGREE_SHARE
+            and row['reeval_feasible_rows_over_bound'] == 0
+            and row['reeval_cost_rel_err_max'] <= MPC_COST_RTOL):
+        raise RuntimeError(f'mpc select_action_batch: the card differs from the CPU: {row}')
+    emit('mpc', part='done', seconds=time.perf_counter() - t_phase, card=smi)
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1347,6 +1713,7 @@ def main():
     welch_closed_loop(dev)
     train = ppo_train(dev, smi)
     ctl_launches, ctl_rows = control(dev, smi)
+    mpc_launches, mpc_rows = mpc(dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -1383,6 +1750,15 @@ def main():
                           ' x 10 iterations, 4 substeps'),
             'quadrotor_3D': (f'PID closed loop B=1 ({ctl_rows["pid quadrotor_3D"]["steps"]} '
                              'steps, 20 substeps)')}[system]
+        row['mpc_launches'] = mpc_launches[PHYSICS[system]['name']]
+        row['mpc_shape'] = {
+            'cartpole': (f'MPC ({mpc_rows["mpc"]["steps"]} steps, 3 SQP) and MPC_ACADOS RTI '
+                         f'({mpc_rows["mpc_acados"]["steps"]} steps) closed loops B=1, '
+                         '50 substeps, horizon 20'),
+            'quadrotor': (f'linear MPC closed loop B=1 ({mpc_rows["linear_mpc"]["steps"]} '
+                          'steps, 20 substeps, horizon 20)'),
+            'quadrotor_3D': 'not on the MPC path'}[system]
+        row['grad_max_abs_err'] = mpc_rows['gradient'][PHYSICS[system]['id']]['max_abs_err']
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

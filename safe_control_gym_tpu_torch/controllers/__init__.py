@@ -1,6 +1,7 @@
 """Controllers of the port, registered at import time: LQR, iLQR and PID;
-PPO (with training), SAC and DDPG (at inference; their training and the other
-controllers come with later slices)."""
+MPC, linear MPC and MPC_ACADOS; PPO (with training), SAC and DDPG (at
+inference; their training and the other controllers come with later
+slices)."""
 
 from safe_control_gym_tpu_torch.utils.registration import register
 
@@ -13,6 +14,15 @@ register(idx='ilqr',
 register(idx='pid',
          entry_point='safe_control_gym_tpu_torch.controllers.pid.pid:PID',
          config_entry_point='safe_control_gym_tpu_torch.controllers.pid:pid.json')
+register(idx='mpc',
+         entry_point='safe_control_gym_tpu_torch.controllers.mpc.mpc:MPC',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.mpc:mpc.json')
+register(idx='linear_mpc',
+         entry_point='safe_control_gym_tpu_torch.controllers.mpc.linear_mpc:LinearMPC',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.mpc:linear_mpc.json')
+register(idx='mpc_acados',
+         entry_point='safe_control_gym_tpu_torch.controllers.mpc.mpc_acados:MPC_ACADOS',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.mpc:mpc_acados.json')
 register(idx='ppo',
          entry_point='safe_control_gym_tpu_torch.controllers.ppo.ppo:PPO',
          config_entry_point='safe_control_gym_tpu_torch.controllers.ppo:ppo.json')

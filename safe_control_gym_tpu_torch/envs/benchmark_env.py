@@ -13,6 +13,10 @@ also takes the channel noise pre-drawn (``drawn``), in the role of the JAX
 drawn-mode step, so a caller can feed it the exact noise another
 implementation drew.
 
+On a CUDA device the step's physics is a kernel (K1-K3), differentiable
+through its plain twin; ``pallas_physics=False``, the JAX package's opt-out,
+runs the twin itself.
+
 The reset info carries the env's prior model, ``env.symbolic``
 (``envs/symbolic.py``), which each env builds in ``_setup_symbolic``. Not in
 this slice: the viewer and render, randomized inertial properties and the
@@ -189,9 +193,13 @@ class BenchmarkEnv:
                  adversary_disturbance=None,
                  adversary_disturbance_offset: float = 0.0,
                  adversary_disturbance_scale: float = 0.01,
+                 pallas_physics: bool = True,
                  device='cuda',
                  **kwargs):
         self.device = resolve_device(device)
+        # False: the step runs the physics kernel's plain PyTorch twin on
+        # any device (the JAX package's opt-out of its Pallas kernel).
+        self.pallas_physics = bool(pallas_physics)
         if gui:
             raise NotImplementedError('gui: the viewer is not in this slice of the port')
         if randomized_inertial_prop:

@@ -27,7 +27,8 @@ from safe_control_gym_tpu_torch.envs.spaces import Box
 from safe_control_gym_tpu_torch.envs.symbolic import AnalyticModel
 from safe_control_gym_tpu_torch.math.linalg import get_cost_weight_matrix
 from safe_control_gym_tpu_torch.math.rotations import normalize_angle
-from safe_control_gym_tpu_torch.ops.physics_kernels import cartpole_advance
+from safe_control_gym_tpu_torch.ops.physics_kernels import (cartpole_advance,
+                                                            cartpole_advance_plain)
 
 __all__ = ['CartPole']
 
@@ -251,10 +252,12 @@ class CartPole(BenchmarkEnv):
 
     def _advance(self, x, clipped_action, dyn_force, params):
         """PYB_STEPS_PER_CTRL semi-implicit-Euler substeps with the force and
-        the tab-force disturbance held (K1)."""
-        return cartpole_advance(x.contiguous(), clipped_action[:, 0].contiguous(),
-                                dyn_force.contiguous(), params.vector(),
-                                self.PYB_STEPS_PER_CTRL, self.PYB_TIMESTEP)
+        the tab-force disturbance held (K1, or its plain twin without
+        ``pallas_physics``)."""
+        advance = cartpole_advance if self.pallas_physics else cartpole_advance_plain
+        return advance(x.contiguous(), clipped_action[:, 0].contiguous(),
+                       dyn_force.contiguous(), params.vector(),
+                       self.PYB_STEPS_PER_CTRL, self.PYB_TIMESTEP)
 
     def _obs_transform(self, state):
         if self.obs_wrap_angle:

@@ -33,8 +33,19 @@ class ConstrainedVariableType(str, Enum):
     INPUT_AND_STATE = 'input_and_state'
 
 
-def _t(a, like):
-    return torch.as_tensor(np.asarray(a, np.float32), device=like.device)
+class _Const:
+    """A float32 constant, copied to a device once, at its first use there
+    (each copy from host memory would wait for the device)."""
+
+    def __init__(self, a):
+        self.array = np.asarray(a, np.float32)
+        self._on = {}
+
+    def on(self, like):
+        t = self._on.get(like.device)
+        if t is None:
+            t = self._on[like.device] = torch.as_tensor(self.array, device=like.device)
+        return t
 
 
 class Constraint:
@@ -134,12 +145,11 @@ class QuadraticConstraint(Constraint):
         self.P = P
         self.b = float(b)
         self.num_constraints = 1
-        F = np.asarray(self.constraint_filter, np.float32)
-        P32 = np.asarray(P, np.float32)
+        F, P32 = _Const(self.constraint_filter), _Const(P)
 
         def sym_func(x):
-            y = x @ _t(F, x).T
-            return ((y @ _t(P32, x)) * y).sum(-1, keepdim=True) - self.b
+            y = x @ F.on(x).T
+            return ((y @ P32.on(x)) * y).sum(-1, keepdim=True) - self.b
         self.sym_func = sym_func
         self.check_tolerance_shape()
 
@@ -159,8 +169,8 @@ class LinearConstraint(Constraint):
         self.A = A
         self.b = b
         self.num_constraints = A.shape[0]
-        AF = A @ np.asarray(self.constraint_filter, np.float32)
-        self.sym_func = lambda x: x @ _t(AF, x).T - _t(b, x)
+        AF, b32 = _Const(A @ np.asarray(self.constraint_filter, np.float32)), _Const(b)
+        self.sym_func = lambda x: x @ AF.on(x).T - b32.on(x)
         self.check_tolerance_shape()
 
 
@@ -220,9 +230,8 @@ class SymmetricStateConstraint(BoundedConstraint):
                          strict=strict, active_dims=active_dims,
                          tolerance=tolerance, decimals=decimals)
         self.num_constraints = self.bound.shape[0]
-        F = np.asarray(self.constraint_filter, np.float32)
-        bound32 = np.asarray(self.bound, np.float32)
-        self.sym_func = lambda x: torch.abs(x @ _t(F, x).T) - _t(bound32, x)
+        F, bound32 = _Const(self.constraint_filter), _Const(self.bound)
+        self.sym_func = lambda x: torch.abs(x @ F.on(x).T) - bound32.on(x)
 
     def value_from(self, state, inp):
         return self._round(self.sym_func(state))

@@ -44,7 +44,9 @@ from safe_control_gym_tpu_torch.math.linalg import get_cost_weight_matrix
 from safe_control_gym_tpu_torch.math.rotations import (normalize_angle,
                                                        transform_trajectory)
 from safe_control_gym_tpu_torch.ops.physics_kernels import (quad2d_advance,
-                                                            quad3d_advance)
+                                                            quad2d_advance_plain,
+                                                            quad3d_advance,
+                                                            quad3d_advance_plain)
 
 __all__ = ['QuadType', 'Quadrotor']
 
@@ -440,17 +442,20 @@ class Quadrotor(BenchmarkEnv):
     def _advance(self, x, clipped_action, dyn_force, params):
         """The motor model, then PYB_STEPS_PER_CTRL semi-implicit-Euler
         substeps with the forces and the world disturbance force held (K2 in
-        2D on the rotor-pair thrusts, K3 in 3D)."""
+        2D on the rotor-pair thrusts, K3 in 3D; their plain twins without
+        ``pallas_physics``)."""
         forces, z_torque, _ = self._motor_forces(clipped_action, params)
+        kernel = self.pallas_physics
         if self.QUAD_TYPE == QuadType.TWO_D:
             t1 = forces[:, 0] + forces[:, 3]
             t2 = forces[:, 1] + forces[:, 2]
-            return quad2d_advance(x.contiguous(), t1, t2, dyn_force.contiguous(),
-                                  params.vector2d(), self.PYB_STEPS_PER_CTRL,
-                                  self.PYB_TIMESTEP)
-        return quad3d_advance(x.contiguous(), forces.contiguous(), z_torque,
-                              dyn_force.contiguous(), params.vector3d(),
-                              self.PYB_STEPS_PER_CTRL, self.PYB_TIMESTEP)
+            advance = quad2d_advance if kernel else quad2d_advance_plain
+            return advance(x.contiguous(), t1, t2, dyn_force.contiguous(),
+                           params.vector2d(), self.PYB_STEPS_PER_CTRL, self.PYB_TIMESTEP)
+        advance = quad3d_advance if kernel else quad3d_advance_plain
+        return advance(x.contiguous(), forces.contiguous(), z_torque,
+                       dyn_force.contiguous(), params.vector3d(),
+                       self.PYB_STEPS_PER_CTRL, self.PYB_TIMESTEP)
 
     def _goal_rows(self, step):
         """(B, nx) reference rows: the goal, or the waypoint X_GOAL[step + 1]

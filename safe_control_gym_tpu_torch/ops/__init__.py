@@ -8,4 +8,7 @@
 
 A wrapper runs the plain version for tensors on the CPU, launches its kernel
 for tensors on a CUDA device, and raises for anything else.
+
+``qp`` is the batched ADMM QP of the MPC family: library calls on the
+inputs' device, as the JAX package's ``ops/qp.py`` is XLA, not Pallas.
 """

@@ -28,7 +28,9 @@ the library's, bit for bit.
 The wrappers ``cartpole_advance``, ``quad2d_advance`` and ``quad3d_advance``
 are the entry points: a CPU batch goes to the ``*_plain`` version, a CUDA
 batch to the kernel. ``<wrapper>.launches`` counts kernel launches. The plain
-versions repeat the kernels' float operations in the same order.
+versions repeat the kernels' float operations in the same order. A CUDA call
+that autograd records (an input requires grad) goes through ``_PlainGrad``:
+the kernel forward, the twin's ``torch.func.vjp`` backward.
 """
 
 from __future__ import annotations
@@ -124,6 +126,12 @@ def cartpole_advance(states, forces, tab_forces, params, n_substeps: int,
                                       n_substeps, dt)
     if dev.type != 'cuda':
         raise ValueError(f'cartpole_advance: unsupported device {dev}')
+    return _launch_with_plain_grad(_cartpole_kernel, cartpole_advance_plain, n_substeps, dt,
+                                   states, forces, tab_forces, params)
+
+
+def _cartpole_kernel(states, forces, tab_forces, params, n_substeps, dt):
+    dev = states.device
     B = states.shape[0]
     check_tensor(states, 'states', (B, 4), dev)
     check_tensor(forces, 'forces', (B,), dev)
@@ -141,6 +149,35 @@ def cartpole_advance(states, forces, tab_forces, params, n_substeps: int,
 
 
 cartpole_advance.launches = 0
+
+
+class _PlainGrad(torch.autograd.Function):
+    """A CUDA kernel's result, differentiated through its plain twin: the
+    backward is ``torch.func.vjp`` of the twin, recomputed from the saved
+    inputs. The kernels and their twins are bit-equal, so this is the twin's
+    gradient at the same point (the JAX package differentiates the plain
+    math by XLA autodiff too; its Pallas kernels have no VJP)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, n_substeps, dt, *tensors):
+        ctx.plain, ctx.n_substeps, ctx.dt = plain, n_substeps, dt
+        ctx.save_for_backward(*tensors)
+        return kernel(*tensors, n_substeps, dt)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        plain = lambda *t: ctx.plain(*t, ctx.n_substeps, ctx.dt)
+        _, vjp = torch.func.vjp(plain, *ctx.saved_tensors)
+        return (None, None, None, None, *vjp(grad_out))
+
+
+def _launch_with_plain_grad(kernel, plain, n_substeps, dt, *tensors):
+    """``kernel(*tensors, n_substeps, dt)``; through :class:`_PlainGrad` where
+    autograd records (grad mode on and an input requiring grad), so that
+    ``backward`` reaches the inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _PlainGrad.apply(kernel, plain, n_substeps, dt, *tensors)
+    return kernel(*tensors, n_substeps, dt)
 
 
 def _cuda_lib(lib_name, entry, n_ptr):
@@ -219,6 +256,12 @@ def quad2d_advance(states, t1, t2, dyn_forces, params, n_substeps: int,
                                     n_substeps, dt)
     if dev.type != 'cuda':
         raise ValueError(f'quad2d_advance: unsupported device {dev}')
+    return _launch_with_plain_grad(_quad2d_kernel, quad2d_advance_plain, n_substeps, dt,
+                                   states, t1, t2, dyn_forces, params)
+
+
+def _quad2d_kernel(states, t1, t2, dyn_forces, params, n_substeps, dt):
+    dev = states.device
     B = states.shape[0]
     check_tensor(states, 'states', (B, 6), dev)
     check_tensor(t1, 't1', (B,), dev)
@@ -336,6 +379,12 @@ def quad3d_advance(states, forces, z_torque, dyn_forces, params,
                                     n_substeps, dt)
     if dev.type != 'cuda':
         raise ValueError(f'quad3d_advance: unsupported device {dev}')
+    return _launch_with_plain_grad(_quad3d_kernel, quad3d_advance_plain, n_substeps, dt,
+                                   states, forces, z_torque, dyn_forces, params)
+
+
+def _quad3d_kernel(states, forces, z_torque, dyn_forces, params, n_substeps, dt):
+    dev = states.device
     B = states.shape[0]
     check_tensor(states, 'states', (B, 12), dev)
     check_tensor(forces, 'forces', (B, 4), dev)

@@ -565,6 +565,19 @@ def cartpole_rollout_plain(state0, cfg, seed, n_steps: int, n_substeps: int,
             'done_count': done_count, 'violation_count': viol_count}
 
 
+def _refuse_grad(name, state0, cfg, actions, x_goal, policy_params):
+    """Raise where autograd would record a rollout kernel: it has no
+    backward, as the JAX package's Pallas rollouts have no VJP. A gradient
+    through a rollout goes through ``env.func.step`` (K1-K3)."""
+    tensors = (state0, cfg, actions, x_goal,
+               policy_params.buffer if policy_params is not None else None)
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f'{name}: the rollout kernel has no gradient; step '
+                           'env.func.step (K1-K3) to differentiate, or call it '
+                           'under torch.no_grad()')
+
+
 def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
                      dt: float, actions=None, draw_actions: bool = True,
                      constrained: bool = False, action_noise=None,
@@ -622,6 +635,7 @@ def cartpole_rollout(state0, cfg, seed, n_steps: int, n_substeps: int,
             clip_obs=clip_obs, x_goal=x_goal, quadratic_cost=quadratic_cost)
     if dev.type != 'cuda':
         raise ValueError(f'cartpole_rollout: unsupported device {dev}')
+    _refuse_grad('cartpole_rollout', state0, cfg, actions, x_goal, policy_params)
     m = _modes(draw_actions, constrained, action_noise, randomized_reset,
                rew_exponential, done_on_oob, x_goal is not None, quadratic_cost,
                policy, policy_stochastic, policy_squash, policy_activation)
@@ -852,6 +866,7 @@ def _quad_rollout(quad_type: int, wrapper, state0, cfg, seed, n_steps: int,
                                   n_substeps, dt, **kw)
     if dev.type != 'cuda':
         raise ValueError(f'{name}: unsupported device {dev}')
+    _refuse_grad(name, state0, cfg, actions, x_goal, policy_params)
     m = _modes(draw_actions, constrained, action_noise, randomized_reset,
                rew_exponential, done_on_oob, x_goal is not None, quadratic_cost,
                policy, policy_stochastic, policy_squash, policy_activation)

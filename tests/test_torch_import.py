@@ -49,6 +49,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import safe_control_gym_tpu_torch.controllers.lqr.ilqr\n'
             'import safe_control_gym_tpu_torch.controllers.pid.pid\n'
             'import safe_control_gym_tpu_torch.experiments.control_configs\n'
+            'import safe_control_gym_tpu_torch.ops.qp\n'
+            'import safe_control_gym_tpu_torch.controllers.mpc.mpc\n'
+            'import safe_control_gym_tpu_torch.controllers.mpc.linear_mpc\n'
+            'import safe_control_gym_tpu_torch.controllers.mpc.mpc_acados\n'
             'from functools import partial\n'
             'from safe_control_gym_tpu_torch.utils.registration import make\n'
             'from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint\n'
@@ -60,6 +64,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             ' max_iterations=1)\n'
             'ilqr.solve_batch(ilqr.env._nominal_init_state()[None])\n'
             'make("pid", partial(make, "quadrotor", device="cpu"))\n'
+            'mpc = make("linear_mpc", partial(make, "cartpole", device="cpu"), horizon=3)\n'
+            'mpc.reset(); mpc.select_action_batch(mpc.env._nominal_init_state()[None])\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)\n'
             'print(bad); sys.exit(1 if bad else 0)' % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -95,7 +101,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         benchmark_suite.measure_closed_loop_kernel('cartpole', batch=8, n_steps=8)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         make('sac', functools.partial(make, 'cartpole'))
-    for algo in ('lqr', 'ilqr', 'pid'):
+    for algo in ('lqr', 'ilqr', 'pid', 'mpc', 'linear_mpc', 'mpc_acados'):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             make(algo, functools.partial(make, 'quadrotor' if algo == 'pid' else 'cartpole'))
     ctrl = make('ppo', functools.partial(make, 'cartpole', device='cpu'))
