@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time its
 kernels, then drive the batched cartpole and quadrotor rollouts, the
 closed-loop evaluation of the committed RL models, PPO training, the
-model-based controllers (LQR, iLQR, PID) and the MPC family (MPC, linear
-MPC, MPC_ACADOS) through the port's entry points.
+model-based controllers (LQR, iLQR, PID), the MPC family (MPC, linear MPC,
+MPC_ACADOS) and the safety filters (linear MPSC, CBF, CBF-NN) through the
+port's entry points.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase safety    # phases control, mpc, safety alone
+                                            # (comma-separated), no result line
 
 Phases, one JSON line each:
   1. card      the card's name and power limit (nvidia-smi);
@@ -69,8 +72,8 @@ Phases, one JSON line each:
                steps) to its end, then ctrl.run(n_episodes=10), gated on
                finite losses, total_steps, K1's launches (iterations x T plus
                the eval's steps) and an eval return of PPO_EVAL_BAR; the
-               committed 2D and 3D configs (128 wide) for two iterations
-               each, gated on finite losses and K2's or K3's launches; one
+               committed 2D and 3D configs (128 wide) for
+               PPO_QUAD_ITERATIONS each, gated on finite losses and K2's or K3's launches; one
                update on a batch of the card's last cartpole rollout, card
                against CPU on the same permutations (params 1e-4); a
                torch.profiler window over one rollout and one epoch (the
@@ -84,8 +87,8 @@ Phases, one JSON line each:
                inverse of H; then, every launch counter set to 0 before and
                read after, iLQR's solve_batch at B=4096 on
                examples/lqr/batched_ilqr_demo.py's cartpole (T=45, 50
-               substeps) and the committed 2D quad example (T=360, 4
-               substeps), 10 iterations each, K1's or K2's launches exactly
+               substeps) and the committed 2D quad example (its first 3 s,
+               T=180, 4 substeps), 10 iterations each, K1's or K2's launches exactly
                10 x T, every card policy's best cost held to a CPU rollout of
                it (rtol 1e-3), the first 64 problems to the port's CPU solve
                of them: on the cartpole all equal (costs, cost curves, gains,
@@ -108,7 +111,8 @@ Phases, one JSON line each:
                device='cuda', ...)) -> reset() -> run() on the examples'
                configs at horizon 20: linear MPC on linear_mpc_quadrotor_2D_track
                (300 steps, K2 at 20 substeps), MPC on mpc_cartpole_stab (3 SQP)
-               and MPC_ACADOS with RTI (90 steps each, K1 at 50 substeps), K1's
+               and MPC_ACADOS with RTI (the first 45 of 90 steps each, K1 at 50
+               substeps), K1's
                or K2's launches exactly the steps, each step gated against the
                port's CPU controller fed the card's observation and warm start
                (MPC_AGREE_SHARE of the actions within MPC_ATOL; every card
@@ -122,27 +126,58 @@ Phases, one JSON line each:
                window), every card answer re-evaluated on the CPU (residual
                under the feasibility bound), its first MPC_GATE_ROWS problems
                against the port's CPU solve (actions, flags, costs);
- 13. kernels   one entry per kernel with its launches, error, times and bound
+ 13. safety    K1 at B=1 and 1 and 50 substeps and K2 at B=1 and 20 substeps
+               bit for bit against their plain versions; then, every launch
+               counter set to 0 before and read after, through
+               BaseExperiment(...).run_evaluation and make('linear_mpsc' |
+               'cbf' | 'cbf_nn', partial(make, env, device='cuda', ...)):
+               BASELINE.json's fifth config (SAC on the 2D quad, the committed
+               model, uncertified, then certified by linear MPSC loaded from
+               the committed P; 250 steps each, K2's launches exactly the
+               steps); learn() on examples/mpsc/batched_certification_demo.py's
+               cartpole (n_samples 120: collection, descent and search timed;
+               its P's blocks certified in float64 and its log det against
+               the CPU's on the same residuals, computed in a worker process);
+               certify_action_batch at B_SAFETY on the demo's states and
+               actions (seconds, certifications/s, ADMM iterations, peak
+               memory, a torch.profiler window) and an LQR loop certified by
+               the learned filter; CBF and CBF-NN (the committed model) on
+               examples/cbf's cartpole (50 Hz, one substep) with LQR, a loop
+               and a batch each; every loop's certifications against the
+               port's CPU filter fed the same state, action and warm state,
+               and replayed through a pallas_physics=False card env (states
+               equal, 0.0); every batch answer re-evaluated on the CPU, its
+               first SAFETY_GATE_ROWS against the CPU's batch (see the
+               phase's constants); config 5's ms a certification with the
+               QP's stages launched and captured, in turns, and a
+               torch.profiler window of two of its steps;
+ 14. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
-               control, and mpc_launches, mpc_shape and grad_max_abs_err, from
-               phase mpc).
+               control, mpc_launches, mpc_shape and grad_max_abs_err, from
+               phase mpc, and safety_launches and safety_shape, from phase
+               safety).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
+import multiprocessing
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
-import numpy as np
-import torch
+_T_START = time.perf_counter()   # before torch's import: the command's own clock
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores. Integer operations are counted at the
@@ -156,15 +191,21 @@ B_BIG = 65536          # the per-step kernels' large-batch time
 CHUNKED_WIDTHS = (384, 1000)   # an actor whose H2 the policy kernel runs in chunks
 T_CHUNKED = 40
 N_SUB, DT = 20, 1e-3
-T_CHECK = {'cartpole': 300, 'quadrotor': 150, 'quadrotor_3D': 150}  # against the plain version
-T_PER_STEP = 1024      # the per-step path of the main path
+# K4/K5 against the plain version, at lengths cut for the script's time; the
+# cartpole's hover replay runs past its 250-step episode, to the time-limit
+# reset (the other cases' episodes end by their bounds).
+T_CHECK = {'cartpole': 150, 'quadrotor': 75, 'quadrotor_3D': 75}
+T_CHECK_HOVER = {'cartpole': 300}
+# The policy mode's cases other than the committed models, likewise.
+T_POLICY_CHECK = {'cartpole': 150, 'quadrotor': 75, 'quadrotor_3D': 75}
+T_PER_STEP = 512       # the per-step path of the main path
 T_ROLLOUT = 131072     # the whole-rollout path of the main path
 T_WELCH = 1024
 T_CLOSED = 500         # the committed models' closed-loop rows (two episodes)
 T_COMMITTED = 300      # the committed models against the plain version: past the
                        # 250-step episode, so every env draws a fresh state
 T_WELCH_CLOSED = 1000
-PPO_QUAD_ITERATIONS = 2   # training iterations of the 2D and 3D configs
+PPO_QUAD_ITERATIONS = 1   # training iterations of the 2D and 3D configs
 # The cartpole training's eval bar: the solved mark, deterministic eval return
 # 200 (PERFORMANCE.md:354-356). The JAX package's PPO, trained on the CPU with
 # the same config and seed 0, evaluates to 249.28 over 10 episodes
@@ -185,14 +226,18 @@ B_CONTROL = 4096
 CONTROL_GATE_ROWS = 64
 CONTROL_RTOL = 1e-3
 CONTROL_ATOL = 1e-4
-# The 2D quad's solve (T=360) is ill-conditioned in float32: a 1e-6 change of
-# the initial state moves the best cost or the iteration count of about one
+# The 2D quad's solve (at the example's T=360) is ill-conditioned in
+# float32: a 1e-6 change of the initial state moves the best cost or the
+# iteration count of about one
 # problem in seven of the port's own CPU solve, and so does the last digit of
 # the LQR gain. There the gate asks this share of the first 64 problems to
 # agree with the CPU's solve, reports the CPU's own share under that 1e-6
 # change, and holds every card policy's cost to a CPU rollout of it.
 CONTROL_AGREE_SHARE = 0.75
 CONTROL_PERTURB = 1e-6
+# The 2D quad's iLQR solve runs the example's first 3 s (T=180 at 60 Hz) of
+# its 6 s episode (T=360), for the script's time.
+ILQR_QUAD_EPISODE_SEC = 3
 # examples/lqr/batched_ilqr_demo.py's cartpole problem (T=45, 50 substeps).
 ILQR_DEMO_TASK = dict(seed=0, cost='quadratic', task='stabilization',
                       task_info={'stabilization_goal': [0.5, 0.0],
@@ -230,6 +275,9 @@ MPC_DEMO_TASK = dict(seed=0, cost='quadratic', ctrl_freq=15, pyb_freq=750,
                                 'stabilization_goal_tolerance': 0.01},
                      randomized_init=False)
 MPC_DEMO_ALGO = dict(q_mpc=[1], r_mpc=[0.1], horizon=20, sqp_iters=3)
+# The cartpole MPC and MPC_ACADOS loops run the first half of their 90-step
+# episode, for the script's time.
+MPC_CARTPOLE_STEPS = 45
 # The gradient case: K1-K3 backward through the kernel against autograd through
 # the plain twin on the same card inputs (relative to the gradient's largest
 # entry), and examples/differentiable_sim_demo.py's cost over GRAD_T actions,
@@ -239,6 +287,68 @@ GRAD_RTOL = 1e-4
 GRAD_T = 8
 GRAD_DEMO = dict(seed=0, ctrl_freq=15, pyb_freq=750, init_state={'init_theta': 0.4},
                  randomized_init=False, cost='quadratic')
+
+# Phase safety: every certification of the card's closed loops held to the
+# port's CPU filter fed the card's state, the same uncertified action and
+# the same warm state (the last plan, the QP's warm start and kinf): the
+# feasibility and success flags equal, at least SAFETY_AGREE_SHARE of the
+# actions within SAFETY_ATOL (as MPC_AGREE_SHARE in phase mpc), and every
+# answer the card flags feasible re-evaluated on the CPU (the tube
+# problem's constraint violation under the filter's own feasibility bound
+# and the true ellipse; CBF: the input rows within feas_tol and the barrier
+# row within slack_tolerance + feas_tol |b| (the QP's residual is in
+# Ruiz-equilibrated units, whose row scale is at most 1/|b|)). The CPU side
+# solves all recorded steps of a loop as one batch (ops/qp.py stops each
+# problem at its own stage, so a row's answer is the single solve's up to
+# rounding) and then runs certify_action's host logic step by step.
+# certify_action_batch at B_SAFETY: every card answer re-evaluated likewise,
+# its first SAFETY_GATE_ROWS against the port's CPU batch: flags equal, and
+# each action within SAFETY_ATOL of the CPU's or, where the CPU's own answer
+# moves by more than SAFETY_ATOL (alone, and to the state changed by
+# SAFETY_PERTURB relative, SAFETY_PERTURBED draws, numpy seed 1), within
+# SAFETY_ATOL of one of those answers (tests/test_torch_safety_filters.py's
+# rule). A batch row that stops at the ADMM budget is fixed only to the
+# rounding of its iterations, and the CPU's answers to it in a batch and
+# alone can differ by more than SAFETY_ATOL.
+SAFETY_ATOL = 1e-4
+SAFETY_AGREE_SHARE = 1.0
+SAFETY_PERTURB = 1e-7
+SAFETY_PERTURBED = 8
+B_SAFETY = 4096
+SAFETY_GATE_ROWS = 64
+# examples/mpsc/batched_certification_demo.py's cartpole and filter (the
+# constrained cartpole and MPSC of tests/test_safety_filters.py, 15 Hz over
+# 50 substeps, n_samples 120): learn() on the card, its batch and an LQR
+# loop certified by the learned filter.
+CERT_DEMO_TASK = dict(seed=42, cost='quadratic', ctrl_freq=15, pyb_freq=750,
+                      task='stabilization',
+                      task_info={'stabilization_goal': [0.0],
+                                 'stabilization_goal_tolerance': 0.005},
+                      init_state={'init_theta': 0.1}, randomized_init=False,
+                      episode_len_sec=6,
+                      constraints=[{'constraint_form': 'default_constraint',
+                                    'constrained_variable': 'state',
+                                    'upper_bounds': [1.5, 2, 0.3, 2],
+                                    'lower_bounds': [-1.5, -2, -0.3, -2]},
+                                   {'constraint_form': 'default_constraint',
+                                    'constrained_variable': 'input',
+                                    'upper_bounds': [5], 'lower_bounds': [-5]}],
+                      done_on_out_of_bound=False)
+CERT_DEMO_SF = dict(horizon=10, q_lin=[1], r_lin=[1], integration_algo='rk4', n_samples=120,
+                    tau=0.95, seed=0, use_terminal_set=False)
+# learn()'s RPI set: the card's P certifies every sampled S-procedure block
+# (largest eigenvalue, float64, in the preconditioned coordinates the
+# certification uses, at most RPI_EIG_TOL), and its log det is the CPU's on
+# the same residuals within RPI_LOGDET_RTOL, or within the CPU's own spread
+# (the largest difference of its answers under two RPI_PERTURB relative
+# changes of the residuals) of one of the CPU's answers: the float32 descent
+# drifts chaotically along the constraint's edge, and the certification's
+# scale search moves log det in steps of nx ln 0.75
+# (tests/test_torch_safety_filters.py: JAX's own log det moves by up to 4%
+# under such changes).
+RPI_EIG_TOL = 1e-6
+RPI_LOGDET_RTOL = 1e-3
+RPI_PERTURB = 1e-7
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -381,16 +491,16 @@ def _plain_rollout(system):
     return functools.partial(rk.quad_rollout_plain, QUAD_TYPE[system])
 
 
-def _rollout_cases(system, dev, T):
-    """(name, state0, cfg, kwargs) of the checked open-loop cases of
+def _rollout_cases(system, dev, T, T_hover=None):
+    """(name, T, state0, cfg, kwargs) of the checked open-loop cases of
     ``system``: three modes at B (replay, tracking with quadratic cost,
     constrained with noise and Philox draws); constrained draws at B_RAGGED
     (a last warp of 8 envs and a last block partly filled), at n_substeps 7
     and 4 (the kernels' general path; the others run the 20 compiled in) and,
     at a batch of four warps an SM (blocks of 128 threads); a hover replay
-    (the angles exactly 0: zero numerators in 3D's quotients); and envs
-    started at an angle past sinf's fast range (the step recomputed with the
-    library's functions)."""
+    (the angles exactly 0: zero numerators in 3D's quotients) of ``T_hover``
+    steps (``T`` if None); and envs started at an angle past sinf's fast
+    range (the step recomputed with the library's functions)."""
     from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     from safe_control_gym_tpu_torch.utils.registration import make
@@ -414,21 +524,22 @@ def _rollout_cases(system, dev, T):
         kw = dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
                   randomized_reset=env.RANDOMIZED_INIT, **mode,
                   **rk.rollout_task_kwargs(env))
-        cases.append((name, states.state.contiguous(), cfg, kw))
-    s0, cfg, kw = cases[-1][1:]
+        cases.append((name, T, states.state.contiguous(), cfg, kw))
+    s0, cfg, kw = cases[-1][2:]
     reset = lambda n: env.func.reset_batch(g, n)[0].state.contiguous()
-    cases.append(('ragged_batch_constrained', reset(B_RAGGED), cfg, kw))
+    cases.append(('ragged_batch_constrained', T, reset(B_RAGGED), cfg, kw))
     for n_sub in (7, 4):
-        cases.append((f'substeps_{n_sub}_constrained', s0, cfg,
+        cases.append((f'substeps_{n_sub}_constrained', T, s0, cfg,
                       dict(kw, n_substeps=n_sub, dt=env.CTRL_TIMESTEP / n_sub)))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    cases.append(('large_batch_constrained', reset(32 * 4 * n_sm), cfg, kw))
+    cases.append(('large_batch_constrained', T, reset(32 * 4 * n_sm), cfg, kw))
+    T_hover = T_hover or T
     hover, raw, cfg_h, kw_h = bs.hover_case(system, dev)
-    cases.append(('hover', hover.expand(B, -1).contiguous(), cfg_h,
-                  dict(kw_h, actions=bs.hover_actions(system, raw, T, B))))
+    cases.append(('hover', T_hover, hover.expand(B, -1).contiguous(), cfg_h,
+                  dict(kw_h, actions=bs.hover_actions(system, raw, T_hover, B))))
     special = s0.clone()
     special[::97, ANGLE_DIM[system]] = 2.0e5
-    cases.append(('angle_past_sinf_fast_range', special, cfg, kw))
+    cases.append(('angle_past_sinf_fast_range', T, special, cfg, kw))
     return cases
 
 
@@ -477,11 +588,12 @@ def check_rollout(system, dev, length=None):
     bit for bit (state and reward sums equal, no count differing), timed on
     the constrained case. ``length`` overrides T."""
     from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
-    meta, T = ROLLOUT[system], length or T_CHECK[system]
+    meta = ROLLOUT[system]
     kernel, plain = _kernel(system)[1], _plain_rollout(system)
     worst = 0.0
     row = None
-    for name, s0, cfg, kw in _rollout_cases(system, dev, T):
+    for name, T, s0, cfg, kw in _rollout_cases(system, dev, length or T_CHECK[system],
+                                               length or T_CHECK_HOVER.get(system)):
         k = kernel(s0, cfg, 7, T, **kw)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -702,13 +814,13 @@ def _policy_cases(system, dev, T=None):
                 torch.as_tensor(params['logstd'], device=dev))
             kw.update(policy_activation='tanh', policy_stochastic=True)
         kw['policy_params'] = pp
-        cases.append((name, T or T_CHECK[system], states.state.contiguous(), cfg, kw))
+        cases.append((name, T or T_POLICY_CHECK[system], states.state.contiguous(), cfg, kw))
     # A batch whose last tile of envs is partly filled: the widest actor (W2
     # streamed), with action noise and Philox draws.
     params = load_checkpoint(_model_path('sac', model_system))['params']
     env = bs._make(system, True, device=dev)
     states, _ = env.func.reset_batch(g, B_RAGGED)
-    cases.append(('ragged_batch_sac_constrained', T or T_CHECK[system],
+    cases.append(('ragged_batch_sac_constrained', T or T_POLICY_CHECK[system],
                   states.state.contiguous(), bs._kernel_cfg(system, env, True),
                   dict(n_substeps=env.PYB_STEPS_PER_CTRL, dt=env.PYB_TIMESTEP,
                        draw_actions=False, constrained=True,
@@ -1030,20 +1142,24 @@ def _update_card_against_cpu(ctrl):
                 losses_card=card_losses, losses_cpu=cpu_losses)
 
 
-def _profiled(fn):
+def _profiled(fn, cpu_activity=True):
     """Run ``fn`` under ``torch.profiler``: host seconds to the last
     synchronize, the device's busy seconds (its kernels' time) and the
-    kernels launched."""
+    kernels launched. Without ``cpu_activity`` the profiler records the
+    card's activity alone. The card's events are read from the profiler's
+    raw results: building its event tree (``key_averages``) takes seconds
+    for the tens of thousands of kernels of a certification."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_activity else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return wall, sum(e.self_device_time_total for e in kernels) / 1e6, sum(
-        e.count for e in kernels)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    return wall, sum(e.duration_ns() for e in kernels) / 1e9, len(kernels)
 
 
 def _training_trace(ctrl):
@@ -1247,6 +1363,7 @@ def control(dev, smi):
     t_phase = time.perf_counter()
     checks = _control_kernel_checks(dev)
     _, quad_task, quad_algo = control_config('ilqr', 'quadrotor_2D', 'stab')
+    quad_task = dict(quad_task, episode_len_sec=ILQR_QUAD_EPISODE_SEC)
     solves = [('cartpole', 'cartpole', ILQR_DEMO_TASK, dict(get_config('ilqr'), max_iterations=10),
                'examples/lqr/batched_ilqr_demo.py', 0.2, True),
               ('quadrotor_2D', 'quadrotor', quad_task, quad_algo,
@@ -1462,9 +1579,10 @@ def _set_warm(ctrl, warm):
     ctrl.x_prev, ctrl.u_prev, ctrl._qp_warm = warm if warm is not None else (None,) * 3
 
 
-def _mpc_run(ctrl):
-    """``ctrl.run()``, each step's inputs recorded: the observation, the info
-    and the warm start the controller held, and its answer."""
+def _mpc_run(ctrl, max_steps=None):
+    """``ctrl.run(max_steps=max_steps)``, each step's inputs recorded: the
+    observation, the info and the warm start the controller held, and its
+    answer."""
     record = []
     select = ctrl.select_action
 
@@ -1478,7 +1596,7 @@ def _mpc_run(ctrl):
     ctrl.select_action = recording
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = ctrl.run()
+    res = ctrl.run(max_steps=max_steps)
     wall = time.perf_counter() - t0
     del ctrl.select_action
     return res, record, wall
@@ -1568,11 +1686,11 @@ def mpc(dev, smi):
     rows = {'gradient': _grad_case(dev),
             'checks': _bit_checks(dev, 'mpc', [('cartpole', 1, 50, 1.0 / 750),
                                                ('quadrotor', 1, 20, 1.0 / 1000)])}
-    loops = [('linear_mpc', 'quadrotor_2D', 'track', 'quad2d_advance'),
-             ('mpc', 'cartpole', 'stab', 'cartpole_advance'),
-             ('mpc_acados', 'cartpole', 'stab', 'cartpole_advance')]
+    loops = [('linear_mpc', 'quadrotor_2D', 'track', 'quad2d_advance', None),
+             ('mpc', 'cartpole', 'stab', 'cartpole_advance', MPC_CARTPOLE_STEPS),
+             ('mpc_acados', 'cartpole', 'stab', 'cartpole_advance', MPC_CARTPOLE_STEPS)]
     ctrls = {}
-    for algo, system, task, _ in loops:
+    for algo, system, task, _, _ in loops:
         env_id, task_cfg, algo_cfg = control_config(algo, system, task)
         ctrls[algo] = [make(algo, functools.partial(make, env_id, device=d, **task_cfg),
                             **algo_cfg) for d in (dev, 'cpu')]
@@ -1582,11 +1700,11 @@ def mpc(dev, smi):
     ctrls['mpc'][0].select_action_batch(np.zeros((2, 4), np.float32))
     for fn in _counters():
         fn.launches = 0
-    for algo, system, task, kname in loops:
+    for algo, system, task, kname, max_steps in loops:
         env_id, task_cfg, _ = control_config(algo, system, task)
         card_ctrl, cpu = ctrls[algo]
         before = {fn.__name__: fn.launches for fn in _counters()}
-        res, record, wall = _mpc_run(card_ctrl)
+        res, record, wall = _mpc_run(card_ctrl, max_steps)
         moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
         steps = len(res['action'])
         state_rmse, total_rmse = compute_state_rmse(np.array(res['state_error']))
@@ -1632,7 +1750,9 @@ def mpc(dev, smi):
     card_ctrl.reset()
     cpu.reset()
     x0s = np.random.default_rng(0).uniform(-0.3, 0.3, (B_MPC, 4)).astype(np.float32)
-    card_ctrl.select_action_batch(x0s[:2])
+    # A first call at the full batch: the timed call then finds the caching
+    # allocator's blocks and the libraries' handles ready.
+    card_ctrl.select_action_batch(x0s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1685,11 +1805,634 @@ def mpc(dev, smi):
     return launches, rows
 
 
+class _Captured(Exception):
+    """Raised by a filter's patched ``_solve`` once it has kept its inputs."""
+
+
+# Phase safety's wall seconds by step, summed over the phase's parts.
+_SAFETY_SECONDS = {}
+
+
+@contextlib.contextmanager
+def _timed(name):
+    t0 = time.perf_counter()
+    yield
+    _SAFETY_SECONDS[name] = _SAFETY_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _filter_warm(sf):
+    """What a filter's certify_action reads besides its arguments: MPSC's
+    last plan, the QP's warm start and kinf (None for CBF, which keeps none)."""
+    if not hasattr(sf, 'z_prev'):
+        return None
+    copy = lambda a: None if a is None else np.array(a)
+    qp = None if sf._qp_warm is None else tuple(np.array(a) for a in sf._qp_warm)
+    return copy(sf.z_prev), copy(sf.v_prev), qp, sf.kinf
+
+
+def _set_filter_warm(sf, warm):
+    if warm is not None:
+        z_prev, v_prev, qp, sf.kinf = warm
+        copy = lambda a: None if a is None else np.array(a)
+        sf.z_prev, sf.v_prev = copy(z_prev), copy(v_prev)
+        sf._qp_warm = None if qp is None else tuple(np.array(a) for a in qp)
+
+
+def _recording_filter(sf, log):
+    """Wrap ``sf.certify_action`` so that each call keeps its inputs, the
+    filter's warm state, its answer and, for a feasible MPSC solve, the plan."""
+    certify = sf.certify_action
+
+    def recording(state, action, info=None):
+        warm = _filter_warm(sf)
+        t0 = time.perf_counter()
+        certified, success = certify(state, action, info)
+        feasible = bool(sf.results_dict['feasible'][-1])
+        plan = None
+        if feasible and hasattr(sf, 'z_prev'):
+            plan = (np.array(sf.X_EQ), np.array(sf.z_prev), np.array(sf.v_prev))
+        log.append(dict(state=np.array(state), action=np.array(action), info=info, warm=warm,
+                        certified=np.array(certified), success=bool(success), feasible=feasible,
+                        seconds=time.perf_counter() - t0, plan=plan))
+        return certified, success
+    sf.certify_action = recording
+
+
+def _cpu_certify(cpu, log):
+    """Each recorded step through ``cpu``'s certify_action from the step's
+    warm state. The solves of all steps run first as one batch on the CPU:
+    a first pass keeps the inputs certify_action hands ``_solve``, the batch
+    solves them, and a second pass runs certify_action with ``_solve``
+    answering from the batch. Returns the answers (certified, success,
+    feasible) and the CPU seconds."""
+    t0 = time.perf_counter()
+    solve = cpu._solve
+    inputs = []
+
+    def capture(*args):
+        inputs.append(args)
+        raise _Captured
+
+    def run_steps():
+        out = []
+        for step in log:
+            _set_filter_warm(cpu, step['warm'])
+            try:
+                certified, success = cpu.certify_action(step['state'], step['action'],
+                                                        step['info'])
+            except _Captured:
+                continue
+            out.append((np.array(certified), bool(success), bool(cpu.results_dict['feasible'][-1])))
+        return out
+    cpu._solve = capture
+    run_steps()
+    outputs = solve(*(torch.cat(parts) for parts in zip(*inputs)))
+    rows = iter(range(len(inputs)))
+
+    def answer(*args):
+        i = next(rows)
+        return tuple(o[i:i + 1] for o in outputs)
+    cpu._solve = answer
+    answers = run_steps()
+    del cpu._solve
+    cpu.reset_before_run()
+    return answers, time.perf_counter() - t0
+
+
+def _mpsc_violation(sf, states, actions, plans):
+    """The tube problem's constraint violation at each plan (X_EQ, z (nx,
+    H+1), v (nu, H)) from its state and uncertified action, on the CPU: the
+    dynamics defect under the filter's dynamics, the tightened state and
+    input rows and the ellipse's inner box; and the true ellipse check.
+    Returns the violations, the filter's feasibility bounds and the ellipse
+    flags."""
+    lam, Vp = np.linalg.eigh(np.asarray(sf.P, np.float64))
+    hw = 1.0 / np.sqrt(sf.model.nx * np.clip(lam, 1e-12, None))
+    A_s, b_s = sf.tightened_state_constraint.A, sf.tightened_state_constraint.b
+    A_u, b_u = sf.tightened_input_constraint.A, sf.tightened_input_constraint.b
+    viol, bounds, omega = [], [], []
+    lo, hi = sf.env.physical_action_bounds
+    for state, action, (xeq, z, v) in zip(states, actions, plans):
+        Z, V = z.T, v.T
+        with torch.no_grad():
+            fz = torch.func.vmap(sf.dynamics_func)(torch.tensor(Z[:-1], dtype=torch.float32),
+                                                  torch.tensor(V, dtype=torch.float32)).numpy()
+        e = state[:sf.model.nx] - xeq - Z[0]
+        viol.append(max(np.abs(Z[1:] - fz).max(),
+                        np.max((Z[:-1] + xeq) @ A_s.T - b_s, initial=0.0),
+                        np.max((V + sf.U_EQ) @ A_u.T - b_u, initial=0.0),
+                        np.max(np.abs(Vp.T @ e) - hw, initial=0.0)))
+        u_L = np.clip(np.asarray(action, np.float32), lo, hi)
+        tol = sf.feas_tol * (max(1.0, float(np.abs(state).max()), float(np.abs(u_L).max()))
+                             if sf.feas_tol_relative else 1.0)
+        bounds.append(tol)
+        omega.append(bool(sf._omega_ok(e[None], tol)[0]))
+    return np.array(viol), np.array(bounds), np.array(omega)
+
+
+def _cbf_violation(sf, states, us):
+    """The CBF problem's violation at each answer u from its state x, on
+    the CPU: the input rows, and the barrier row beyond the slack the filter
+    allows. Returns each answer's violation over its bound (feas_tol for the
+    input rows, slack_tolerance + feas_tol |b| for the barrier row)."""
+    x = torch.tensor(np.asarray(states, np.float32))
+    u = torch.tensor(np.asarray(us, np.float32)).reshape(x.shape[0], -1)
+    with torch.no_grad():
+        zeros = torch.zeros_like(u)
+        a0 = torch.func.vmap(sf._lie)(x, zeros)
+        b0 = torch.func.vmap(torch.func.jacfwd(sf._lie, argnums=1))(x, zeros)
+        nn_a, nn_b = sf._nn_terms_batch(x.numpy())
+        bt = (b0 + nn_a).numpy().astype(np.float64)
+        rhs = (sf.slope * torch.func.vmap(sf.cbf)(x) + a0 + nn_b).numpy().astype(np.float64)
+    u = u.numpy().astype(np.float64)
+    barrier = np.clip(-(bt * u).sum(-1) - rhs, 0.0, None)
+    inputs = np.clip(u @ sf.input_constraint.A.T - sf.input_constraint.b, 0.0, None).max(-1)
+    slack = sf.slack_tolerance if sf.soft_constrained else 0.0
+    return np.maximum(inputs / sf.feas_tol,
+                      barrier / (slack + sf.feas_tol * np.maximum(1.0, np.abs(bt).max(-1))))
+
+
+def _perturbed(state):
+    rng = np.random.default_rng(1)
+    return np.stack([state * (1 + SAFETY_PERTURB * rng.standard_normal(state.shape))
+                     for _ in range(SAFETY_PERTURBED)]).astype(np.float32)
+
+
+def _agree(card_u, ref, variants):
+    """tests/test_torch_safety_filters.py's rule: the card's answer is the
+    CPU's ``ref`` within SAFETY_ATOL, or, where the CPU's own answer moves by
+    more than SAFETY_ATOL among ``variants`` (its answers to the same problem
+    alone and to the state changed by SAFETY_PERTURB), one of those within
+    SAFETY_ATOL. Returns the verdict, the CPU's spread and the card's
+    distance to the nearest of the CPU's answers."""
+    card_u, ref = (np.atleast_1d(np.asarray(a, np.float64)) for a in (card_u, ref))
+    variants = [np.atleast_1d(np.asarray(a, np.float64)) for a in variants]
+    spread = max(np.abs(a - ref).max() for a in variants)
+    nearest = min(np.abs(card_u - a).max() for a in [ref, *variants])
+    ok = np.abs(card_u - ref).max() <= SAFETY_ATOL or (spread > SAFETY_ATOL
+                                                       and nearest <= SAFETY_ATOL)
+    return dict(ok=bool(ok), cpu_spread=float(spread), nearest_cpu_answer=float(nearest))
+
+
+def _certified_gate(card, cpu, log):
+    """A loop's recorded certifications against ``cpu`` (see the phase's
+    constants): flags, the share of actions within SAFETY_ATOL, and every
+    feasible card answer re-evaluated on the CPU (its violation over its
+    bound, at most 1)."""
+    answers, cpu_seconds = _cpu_certify(cpu, log)
+    err = np.array([np.abs(np.asarray(a[0], np.float64) - step['certified']).max()
+                    for a, step in zip(answers, log)])
+    flags_equal = all(a[1] == step['success'] and a[2] == step['feasible']
+                      for a, step in zip(answers, log))
+    feasible = [step for step in log if step['feasible']]
+    if not feasible:
+        over = np.zeros(0)
+        omega_ok = True
+    elif hasattr(cpu, 'P'):
+        viol, bound, omega = _mpsc_violation(cpu, [s['state'] for s in feasible],
+                                             [s['action'] for s in feasible],
+                                             [s['plan'] for s in feasible])
+        over, omega_ok = viol / bound, bool(omega.all())
+    else:
+        over = _cbf_violation(cpu, [s['state'] for s in feasible],
+                              [s['certified'] for s in feasible])
+        omega_ok = True
+    return dict(steps=len(log), cpu_seconds=cpu_seconds, flags_equal=flags_equal,
+                action_max_abs_err=float(err.max()),
+                steps_within_atol_share=float((err <= SAFETY_ATOL).mean()),
+                agree_share_gate=SAFETY_AGREE_SHARE,
+                steps_beyond_atol=[int(k) for k in np.flatnonzero(err > SAFETY_ATOL)],
+                reeval_feasible_steps=len(feasible),
+                reeval_violation_over_bound_max=float(over.max()) if over.size else 0.0,
+                reeval_omega_ok=omega_ok,
+                ok=bool(flags_equal and (err <= SAFETY_ATOL).mean() >= SAFETY_AGREE_SHARE
+                        and (over <= 1.0).all() and omega_ok))
+
+
+def _replay_states(env_id, task_cfg, dev, data):
+    """A run's actions replayed through a card env made with
+    ``pallas_physics=False`` from the same reset: the largest difference of
+    its states from the run's."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env = make(env_id, device=dev, pallas_physics=False, **task_cfg)
+    env.reset()
+    env.reset()       # BaseExperiment resets twice: in reset() and for the run
+    states = [np.array(env.state)]
+    for action in data['action'][0]:
+        env.step(action)
+        states.append(np.array(env.state))
+    env.close()
+    return float(np.abs(np.stack(states) - data['state'][0]).max())
+
+
+def _evaluate(env_func, ctrl, sf=None, log=None):
+    """One episode through ``BaseExperiment.run_evaluation``; with ``log``,
+    the filter's certifications recorded. Returns the data, the metrics,
+    the wall seconds and the launches of each kernel."""
+    from safe_control_gym_tpu_torch.experiments.base_experiment import BaseExperiment
+    if log is not None:
+        _recording_filter(sf, log)
+    exp = BaseExperiment(env=env_func(), ctrl=ctrl, safety_filter=sf)
+    before = {fn.__name__: fn.launches for fn in _counters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, metrics = exp.run_evaluation(n_episodes=1, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+    exp.close()
+    if log is not None:
+        del sf.certify_action
+    return data, metrics, wall, moved
+
+
+def _checked_loop(row, card, cpu, log, env_id, task, dev, data, env_func=None, ctrl=None):
+    """A certified loop's gate against the CPU and its replay through the
+    plain twin, and with ``env_func`` a profiler window of two of its steps,
+    into ``row``."""
+    with _timed('cpu gates'):
+        row['gate'] = _certified_gate(card, cpu, log)
+    with _timed('replays'):
+        row['replay_plain_max_abs_err'] = _replay_states(env_id, task, dev, data)
+    if env_func is not None:
+        with _timed('traces'):
+            row['trace'] = _trace_steps(env_func, ctrl, card)
+
+
+def _run_row(data, metrics, wall, moved, log=None, horizon=None):
+    steps = int(metrics['average_length'])
+    row = dict(steps=steps, wall_s=wall, ms_per_step=1e3 * wall / steps,
+               average_constraint_violation=float(metrics['average_constraint_violation']),
+               average_return=float(metrics['average_return']),
+               average_rmse=float(metrics['average_rmse']), launches=moved)
+    if log is not None:
+        sfd = data['safety_filter_data']
+        feasible = np.asarray(sfd['feasible'][0], bool)
+        row.update(feasible_share=float(feasible.mean()),
+                   success_share=float(np.mean([s['success'] for s in log])),
+                   mean_correction=float(np.mean(sfd['correction'][0])),
+                   ms_per_certification=1e3 * float(np.mean([s['seconds'] for s in log])))
+        if 'kinf' in sfd:
+            # kinf 0: certified; 1..H-1: the last plan replayed; >= H: LQR.
+            kinf, H = np.asarray(sfd['kinf'][0], int), horizon
+            row['kinf_histogram'] = {'0': int((kinf == 0).sum()),
+                                     '1..H-1': int(((kinf > 0) & (kinf < H)).sum()),
+                                     '>=H': int((kinf >= H).sum())}
+    return row
+
+
+def _trace_steps(env_func, ctrl, sf, n_steps=2):
+    """``n_steps`` certified steps through run_evaluation under
+    torch.profiler (the card's activity alone: a step is tens of thousands
+    of kernels): seconds, the device's busy seconds and share, kernels a
+    step."""
+    from safe_control_gym_tpu_torch.experiments.base_experiment import BaseExperiment
+    exp = BaseExperiment(env=env_func(), ctrl=ctrl, safety_filter=sf)
+    wall, busy, kernels = _profiled(lambda: exp.run_evaluation(n_steps=n_steps, verbose=False),
+                                    cpu_activity=False)
+    exp.close()
+    return dict(window=f'run_evaluation(n_steps={n_steps}) under torch.profiler', seconds=wall,
+                device_busy_s=busy, device_busy_share=busy / wall,
+                kernels_per_step=kernels / n_steps)
+
+
+def _check_run(label, row, kernel, gate=None, replay=None):
+    if row['launches'][kernel] != row['steps'] or sum(row['launches'].values()) != row['steps']:
+        raise RuntimeError(f'safety {label}: launches {row["launches"]}, expected '
+                           f'{row["steps"]} of {kernel} alone')
+    if not np.isfinite(row['average_return']):
+        raise RuntimeError(f'safety {label}: no finite return: {row}')
+    if gate is not None and not gate['ok']:
+        raise RuntimeError(f'safety {label}: the card\'s certifications fail their gate: {gate}')
+    if replay is not None and replay != 0.0:
+        raise RuntimeError(f'safety {label}: the replay through the plain twin differs: {replay}')
+
+
+def _config5(dev, smi):
+    """BASELINE.json's fifth config: SAC on the 2D quad (the committed
+    model), uncertified, then certified by linear MPSC loaded from the
+    committed P, through BaseExperiment (examples/mpsc/mpsc_experiment.py's
+    shaping of the env and the filter's env)."""
+    from safe_control_gym_tpu_torch.experiments.control_configs import safety_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env_id, task, algo_cfg, sfs = safety_config('mpsc', 'quadrotor_2D', 'stab', 'sac')
+    task = dict(task, randomized_init=False, cost='rl_reward')
+    sf_task = dict(task, normalized_rl_action_space=False, cost='quadratic')
+    env_func = functools.partial(make, env_id, device=dev, **task)
+    with _timed('set-up'):
+        ctrl = make('sac', env_func, training=False, **algo_cfg)
+        ctrl.load(os.path.join(ROOT, 'examples/mpsc/models/sac_model_quadrotor_2D_stab.pt'))
+        card, cpu = (make('linear_mpsc', functools.partial(make, env_id, device=d, **sf_task),
+                          **sfs['linear_mpsc']) for d in (dev, 'cpu'))
+        for sf in (card, cpu):
+            sf.load(os.path.join(ROOT, 'examples/mpsc/models/linear_mpsc_quadrotor_2D.pkl'))
+    with _timed('loops'):
+        rows = {'uncertified': _run_row(*_evaluate(env_func, ctrl))}
+        ctrl.reset()
+        log = []
+        data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log)
+    row = _run_row(data, metrics, wall, moved, log, card.horizon)
+    row['qp_admm_iterations_last_step'] = torch.stack(card.qp_iterations).cpu().numpy().ravel().tolist()
+    _checked_loop(row, card, cpu, log, env_id, task, dev, data, env_func, ctrl)
+    with _timed('capture a/b'):
+        row['ms_per_certification_by_capture'] = _capture_ab(card, log[0])
+    rows['certified'] = row
+    for name, r in rows.items():
+        emit('safety', part=f'config 5 (SAC + linear MPSC, quadrotor_2D stab), {name}',
+             source='examples/mpsc/config_overrides/quadrotor_2D/quadrotor_2D_stab.yaml, '
+                    'sac_quadrotor_2D.yaml, linear_mpsc_quadrotor_2D.yaml',
+             horizon=card.horizon, sqp_iters=card.sqp_iters, qp_iters=card.qp_iters,
+             n_z=card._n_z, m_rows=card._m_rows, n_substeps=card.env.PYB_STEPS_PER_CTRL,
+             card=smi, **r)
+    _check_run('config 5 uncertified', rows['uncertified'], 'quad2d_advance')
+    _check_run('config 5 certified', row, 'quad2d_advance', row['gate'],
+               row['replay_plain_max_abs_err'])
+    return rows
+
+
+def _capture_ab(sf, step):
+    """ms of the recorded certification ``step`` with ops/qp.py's stages
+    replayed as CUDA graphs (the filter's call) and launched op by op (the
+    filter module's ``admm_qp`` swapped for one with ``capture=False``), in
+    turns (launched, captured, captured, launched)."""
+    from safe_control_gym_tpu_torch.safety_filters.mpsc import linear_mpsc
+    captured = linear_mpsc.admm_qp
+    launched = lambda *args, **kw: captured(*args, **dict(kw, capture=False))
+    times = {False: [], True: []}
+    try:
+        for capture in (False, True, True, False):
+            linear_mpsc.admm_qp = captured if capture else launched
+            _set_filter_warm(sf, step['warm'])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sf.certify_action(step['state'], step['action'], step['info'])
+            torch.cuda.synchronize()
+            times[capture].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        linear_mpsc.admm_qp = captured
+    sf.reset_before_run()
+    return {'launched': float(np.mean(times[False])), 'captured': float(np.mean(times[True]))}
+
+
+def _rpi_checks(card, cpu_logdets):
+    """The card's P against every sampled block (float64) and the CPU's log
+    det on the same residuals."""
+    from safe_control_gym_tpu_torch.safety_filters.mpsc import mpsc_utils
+    A_cl = card.discrete_dfdx + card.discrete_dfdu @ card.lqr_gain
+    W = np.asarray(card.residuals, np.float64).T
+    D = mpsc_utils._preconditioner(np.asarray(A_cl, np.float64), W)
+    P_s = np.asarray(card.P, np.float64) / np.outer(D, D)
+    A_s = (D[:, None] * A_cl) / D[None, :]
+    max_eig = float(mpsc_utils._max_lmi_eigs(
+        torch.tensor(P_s), torch.tensor(A_s), torch.tensor(W * D[None, :]), float(card.tau)).max())
+    ld = float(np.linalg.slogdet(card.P)[1])
+    spread = max(cpu_logdets) - min(cpu_logdets)
+    nearest = min(abs(ld - x) for x in cpu_logdets)
+    return dict(max_block_eig_f64=max_eig, eig_tol=RPI_EIG_TOL, logdet_card=ld,
+                logdet_cpu=cpu_logdets[0], logdet_cpu_perturbed=cpu_logdets[1:],
+                logdet_rel_err=abs(ld - cpu_logdets[0]) / abs(cpu_logdets[0]),
+                logdet_nearest_cpu_err=nearest, cpu_spread=spread, rtol=RPI_LOGDET_RTOL,
+                ok=bool(max_eig <= RPI_EIG_TOL and nearest
+                        <= max(RPI_LOGDET_RTOL * abs(cpu_logdets[0]), spread)))
+
+
+def _cpu_rpi_logdets(A_cl, w, tau):
+    """log det of the CPU's RPI set on the residuals w and on two copies
+    changed by RPI_PERTURB relative (numpy seed 1); run in a worker process."""
+    from safe_control_gym_tpu_torch.safety_filters.mpsc.mpsc_utils import compute_RPI_set
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(1)
+    out = []
+    for k in range(3):
+        wk = w if k == 0 else w * (1 + RPI_PERTURB * rng.standard_normal(w.shape))
+        out.append(float(np.linalg.slogdet(compute_RPI_set(A_cl, wk, tau, device='cpu'))[1]))
+    return out
+
+
+def _cartpole_learn(dev, smi, pool):
+    """learn() on the card on the batched demo's cartpole; the CPU's RPI sets
+    on the card's residuals submitted to ``pool``. Returns the card's filter,
+    learn()'s row and the CPU's future."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    with _timed('set-up'):
+        card = make('linear_mpsc', functools.partial(make, 'cartpole', device=dev,
+                                                     **CERT_DEMO_TASK), **CERT_DEMO_SF)
+    before = {fn.__name__: fn.launches for fn in _counters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _timed('learn'):
+        card.learn()
+        torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    learn_launches = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+    learn = dict(seconds=learn_s, split=card.learn_seconds, n_samples=card.n_samples,
+                 launches=learn_launches, P=np.asarray(card.P).tolist())
+    emit('safety', part='linear MPSC learn() on the card', source='examples/mpsc/'
+         'batched_certification_demo.py (tests/test_safety_filters.py\'s config)', card=smi,
+         **learn)
+    if learn_launches['cartpole_advance'] != card.n_samples:
+        raise RuntimeError(f'safety learn(): {learn_launches}')
+    A_cl = card.discrete_dfdx + card.discrete_dfdu @ card.lqr_gain
+    return card, learn, pool.submit(_cpu_rpi_logdets, A_cl, card.residuals, card.tau)
+
+
+def _cartpole_rpi(card, learn, cpu_rpi, smi):
+    """The learned RPI set against the CPU's (``cpu_rpi``'s log dets)."""
+    with _timed('waiting for the cpu rpi sets'):
+        logdets = cpu_rpi.result()
+    rpi = _rpi_checks(card, logdets)
+    emit('safety', part='the learned RPI set: its blocks (float64) and the CPU\'s log det',
+         card=smi, **rpi)
+    if not rpi['ok']:
+        raise RuntimeError(f'safety learn(): {rpi}')
+    return dict(learn, rpi=rpi)
+
+
+def _cartpole_certified(card, dev, smi):
+    """certify_action_batch at B_SAFETY on the batched demo's states and
+    actions, and an LQR loop certified by the card's learned filter, both
+    against the port's CPU filter loaded with the card's P."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    with _timed('set-up'):
+        cpu = make('linear_mpsc', functools.partial(make, 'cartpole', device='cpu',
+                                                    **CERT_DEMO_TASK), **CERT_DEMO_SF)
+        with tempfile.TemporaryDirectory() as tmp:
+            card.save(os.path.join(tmp, 'mpsc.pkl'))
+            cpu.load(os.path.join(tmp, 'mpsc.pkl'))
+    rows = {}
+    # certify_action_batch at B_SAFETY on the demo's states and actions.
+    rng = np.random.default_rng(0)
+    states = rng.normal(0, 0.3, (B_SAFETY, 4)).astype(np.float32)
+    actions = rng.uniform(-4, 4, (B_SAFETY, 1)).astype(np.float32)
+    rows['batch'] = _batch_row(card, cpu, states, actions,
+                               'examples/mpsc/batched_certification_demo.py', smi)
+    # An LQR loop certified by the learned filter (tests/test_safety_filters.py's).
+    env_func = functools.partial(make, 'cartpole', device=dev, **CERT_DEMO_TASK)
+    ctrl = make('lqr', env_func, q_lqr=[1], r_lqr=[0.1])
+    log = []
+    with _timed('loops'):
+        data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log)
+    row = _run_row(data, metrics, wall, moved, log, card.horizon)
+    _checked_loop(row, card, cpu, log, 'cartpole', CERT_DEMO_TASK, dev, data)
+    rows['lqr loop'] = row
+    emit('safety', part='linear MPSC on the cartpole, LQR certified by the learned filter',
+         horizon=card.horizon, n_z=card._n_z, m_rows=card._m_rows, card=smi, **row)
+    _check_run('cartpole LQR + MPSC', row, 'cartpole_advance', row['gate'],
+               row['replay_plain_max_abs_err'])
+    return rows
+
+
+def _batch_row(card, cpu, states, actions, source, smi):
+    """certify_action_batch of B rows on the card: time, memory, a profiler
+    window; every answer re-evaluated on the CPU; the first rows against the
+    CPU's batch."""
+    # A first call at the full batch captures ops/qp.py's graphs for its
+    # shapes (and sets up the allocator's blocks), outside the timed call.
+    with _timed('batches: first call'):
+        card.certify_action_batch(states, actions)
+        torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u, feasible = card.certify_action_batch(states, actions)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    G = SAFETY_GATE_ROWS
+    t0 = time.perf_counter()
+    with _timed('cpu gates'):
+        u_h, f_h = cpu.certify_action_batch(states[:G], actions[:G])
+    cpu_seconds = time.perf_counter() - t0
+    err = np.abs(u[:G] - u_h).max(axis=1)
+    beyond = np.flatnonzero(err > SAFETY_ATOL)
+    agree = []
+    t0 = time.perf_counter()
+    for i in beyond:
+        alone = cpu.certify_action_batch(states[i:i + 1], actions[i:i + 1])[0][0]
+        changed = _perturbed(states[i])
+        changed = cpu.certify_action_batch(changed, np.repeat(actions[i][None], len(changed),
+                                                              axis=0))[0]
+        agree.append(dict(row=int(i), card_err=float(err[i]), **_agree(u[i], u_h[i],
+                                                                       [alone, *changed])))
+    _SAFETY_SECONDS['cpu gates'] += time.perf_counter() - t0
+    B_rows = states.shape[0]
+    row = dict(source=source, B=B_rows, seconds=seconds, certifications_per_s=B_rows / seconds,
+               feasible_share=float(feasible.mean()), peak_memory_bytes=int(peak), gate_rows=G,
+               cpu_seconds=cpu_seconds, action_max_abs_err=float(err.max()),
+               rows_within_atol_share=float((err <= SAFETY_ATOL).mean()),
+               rows_beyond_atol=agree, flags_equal=bool(np.array_equal(feasible[:G], f_h)))
+    if hasattr(card, 'P'):
+        with _timed('traces'):
+            b_wall, b_busy, b_kernels = _profiled(
+                lambda: card.certify_action_batch(states, actions), cpu_activity=False)
+        row['trace'] = dict(window=f'one certify_action_batch, B={B_rows}, under '
+                                   'torch.profiler', seconds=b_wall, device_busy_s=b_busy,
+                            kernels=b_kernels, device_busy_share=b_busy / b_wall)
+        Z, V = (t.cpu().numpy() for t in card.batch_plans)
+        xeqs = np.stack([cpu._xeq_for(s) for s in states])
+        plans = [(xeqs[i], Z[i].T, V[i].T) for i in np.flatnonzero(feasible)]
+        viol, bound, omega = _mpsc_violation(cpu, states[feasible], actions[feasible], plans)
+        its = torch.stack(card.qp_iterations).cpu().numpy()
+        row.update(horizon=card.horizon, sqp_iters=card.sqp_iters, n_z=card._n_z,
+                   m_rows=card._m_rows, admm_iterations_per_qp_max=its.max(axis=1).tolist(),
+                   admm_iterations_per_qp_mean=its.mean(axis=1).tolist(),
+                   reeval_omega_ok=bool(omega.all()))
+        over = viol / bound
+    else:
+        over = _cbf_violation(cpu, states[feasible], u[feasible])
+        row['reeval_omega_ok'] = True
+    row.update(reeval_rows=int(feasible.sum()),
+               reeval_violation_over_bound_max=float(over.max()) if over.size else 0.0)
+    row['card'] = smi
+    emit('safety', part=f'{type(card).__name__}.certify_action_batch', **row)
+    if not (np.isfinite(u).all() and row['flags_equal'] and feasible.any()
+            and all(a['ok'] for a in agree)
+            and (over <= 1.0).all() and row['reeval_omega_ok']):
+        raise RuntimeError(f'safety {type(card).__name__} batch: the card differs from the '
+                           f'CPU: {row}')
+    return row
+
+
+def _cbf_family(dev, smi):
+    """CBF and CBF-NN (the committed model) on the cbf example's cartpole
+    (50 Hz, one substep) with LQR: a certified episode through
+    BaseExperiment each, and certify_action_batch at B_SAFETY."""
+    from safe_control_gym_tpu_torch.experiments.control_configs import safety_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env_id, task, algo_cfg, sfs = safety_config('cbf', 'cartpole', 'stab', 'lqr')
+    rng = np.random.default_rng(0)
+    states = rng.normal(0, 0.3, (B_SAFETY, 4)).astype(np.float32)
+    actions = rng.uniform(-4, 4, (B_SAFETY, 1)).astype(np.float32)
+    rows = {}
+    for name in ('cbf', 'cbf_nn'):
+        env_func = functools.partial(make, env_id, device=dev, **task)
+        with _timed('set-up'):
+            card, cpu = (make(name, functools.partial(make, env_id, device=d, **task),
+                              **sfs[name]) for d in (dev, 'cpu'))
+            if name == 'cbf_nn':
+                for sf in (card, cpu):
+                    sf.load(os.path.join(ROOT, 'examples/cbf/models/cbf_nn_cartpole.pt'))
+            ctrl = make('lqr', env_func, **algo_cfg)
+        log = []
+        with _timed('loops'):
+            data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log)
+        row = _run_row(data, metrics, wall, moved, log)
+        _checked_loop(row, card, cpu, log, env_id, task, dev, data)
+        emit('safety', part=f'{name} on the cartpole, LQR certified',
+             source=f'examples/cbf/config_overrides/cartpole/{name}_cartpole_stab.yaml',
+             n_substeps=card.env.PYB_STEPS_PER_CTRL, card=smi, **row)
+        _check_run(f'{name} loop', row, 'cartpole_advance', row['gate'],
+                   row['replay_plain_max_abs_err'])
+        rows[name] = {'loop': row, 'batch': _batch_row(
+            card, cpu, states, actions,
+            f'examples/cbf/config_overrides/cartpole/ ({name}); batched demo states', smi)}
+    return rows
+
+
+def safety(dev, smi):
+    """The slice's main path: the safety filters through
+    make('linear_mpsc' | 'cbf' | 'cbf_nn', partial(make, env, device='cuda',
+    ...)) and BaseExperiment(..., safety_filter=...).run_evaluation, K1 or K2
+    stepping every loop; see the module docstring."""
+    t_phase = time.perf_counter()
+    rows = {'checks': _bit_checks(dev, 'safety', [('cartpole', 1, 1, 1.0 / 50),
+                                                  ('cartpole', 1, 50, 1.0 / 750),
+                                                  ('quadrotor', 1, 20, 1.0 / 1000)])}
+    for fn in _counters():
+        fn.launches = 0
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    # learn() first: the CPU's RPI sets on its residuals run in a worker
+    # process while the card goes on with the other parts.
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context('spawn'))
+    try:
+        card, learn, cpu_rpi = part('cartpole_mpsc', _cartpole_learn, dev, smi, pool)
+        rows['config5'] = part('config5', _config5, dev, smi)
+        rows['cartpole_mpsc'] = part('cartpole_mpsc', _cartpole_certified, card, dev, smi)
+        rows['cbf'] = part('cbf', _cbf_family, dev, smi)
+        rows['cartpole_mpsc']['learn'] = part('cartpole_mpsc', _cartpole_rpi, card, learn,
+                                              cpu_rpi, smi)
+    finally:
+        pool.shutdown()
+    launches = {fn.__name__: fn.launches for fn in _counters()}
+    emit('safety', launches=launches, seconds_by_part=seconds,
+         seconds_by_step=dict(_SAFETY_SECONDS))
+    for name in ('cartpole_advance', 'quad2d_advance'):
+        if launches[name] <= 0:
+            raise RuntimeError(f'the safety path never launched {name}')
+    emit('safety', part='done', seconds=time.perf_counter() - t_phase, card=smi)
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the GPU', file=sys.stderr)
         sys.exit(2)
+    only = sys.argv[sys.argv.index('--phase') + 1] if '--phase' in sys.argv else None
     from safe_control_gym_tpu_torch.ops import _build
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     dev = torch.device('cuda')
@@ -1703,17 +2446,33 @@ def main():
     libs = _build.build_all()
     emit('build', seconds=time.perf_counter() - t0, flags=_build.NVCC_FLAGS,
          libraries=sorted(libs))
-    physics = {s: check_physics(s, dev) for s in SYSTEMS}
-    rollout = {s: check_rollout(s, dev) for s in SYSTEMS}
-    serial = chain(dev)
-    launches, rows = main_path(dev, smi)
-    welch(dev)
-    policy = {s: check_policy(s, dev) for s in SYSTEMS}
-    cl_launches, cl_rows = closed_loop(dev, smi)
-    welch_closed_loop(dev)
-    train = ppo_train(dev, smi)
-    ctl_launches, ctl_rows = control(dev, smi)
-    mpc_launches, mpc_rows = mpc(dev, smi)
+    seconds = {'import': t_start - _T_START, 'build': time.perf_counter() - t0}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        emit('seconds', of_phase=phase, seconds=seconds[phase])
+        return out
+    if only is not None:
+        # Some phases alone (a development run): their lines, and no result.
+        for phase in only.split(','):
+            timed(phase, {'control': control, 'mpc': mpc, 'safety': safety}[phase], dev, smi)
+        emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
+             card=smi, phases=only)
+        return
+    physics = timed('k1-k3', lambda: {s: check_physics(s, dev) for s in SYSTEMS})
+    rollout = timed('k4-k5', lambda: {s: check_rollout(s, dev) for s in SYSTEMS})
+    serial = timed('chain', chain, dev)
+    launches, rows = timed('main_path', main_path, dev, smi)
+    timed('welch', welch, dev)
+    policy = timed('k4_policy-k5_policy', lambda: {s: check_policy(s, dev) for s in SYSTEMS})
+    cl_launches, cl_rows = timed('closed_loop', closed_loop, dev, smi)
+    timed('welch_closed_loop', welch_closed_loop, dev)
+    train = timed('ppo_train', ppo_train, dev, smi)
+    ctl_launches, ctl_rows = timed('control', control, dev, smi)
+    mpc_launches, mpc_rows = timed('mpc', mpc, dev, smi)
+    sf_launches, sf_rows = timed('safety', safety, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -1759,6 +2518,17 @@ def main():
                           'steps, 20 substeps, horizon 20)'),
             'quadrotor_3D': 'not on the MPC path'}[system]
         row['grad_max_abs_err'] = mpc_rows['gradient'][PHYSICS[system]['id']]['max_abs_err']
+        row['safety_launches'] = sf_launches[PHYSICS[system]['name']]
+        c5, cp, cbf = sf_rows['config5'], sf_rows['cartpole_mpsc'], sf_rows['cbf']
+        row['safety_shape'] = {
+            'cartpole': (f'B=1: linear MPSC learn() ({cp["learn"]["n_samples"]} steps) and an '
+                         f'LQR loop certified by it ({cp["lqr loop"]["steps"]} steps), 50 '
+                         f'substeps; CBF and CBF-NN LQR loops ({cbf["cbf"]["loop"]["steps"]} and '
+                         f'{cbf["cbf_nn"]["loop"]["steps"]} steps), 1 substep'),
+            'quadrotor': (f'B=1: config 5, SAC uncertified ({c5["uncertified"]["steps"]} steps) '
+                          f'and certified by linear MPSC ({c5["certified"]["steps"]} steps, and '
+                          'a 2-step profiler window), 20 substeps'),
+            'quadrotor_3D': 'not on the safety path'}[system]
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)
@@ -1807,7 +2577,9 @@ def main():
                policy['cartpole'], policy['quadrotor'], policy['quadrotor_3D']]
     kernels = [{**{k: row[k] for k in keys}, **{k: v for k, v in row.items() if k not in keys}}
                for row in ordered]
-    emit('done', wall_seconds=time.perf_counter() - t_start, card=smi)
+    # wall_seconds counts from before torch's import, as the command's clock does.
+    emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
+         card=smi)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -14,7 +14,8 @@ CUDA device it raises unless the caller passes ``device='cpu'``.
 
 __version__ = '0.1.0'
 
-# Importing the envs and controllers subpackages populates the registry (as
-# the JAX package does).
+# Importing the envs, controllers and safety_filters subpackages populates
+# the registry (as the JAX package does).
 import safe_control_gym_tpu_torch.controllers  # noqa: F401,E402
 import safe_control_gym_tpu_torch.envs  # noqa: F401,E402
+import safe_control_gym_tpu_torch.safety_filters  # noqa: F401,E402

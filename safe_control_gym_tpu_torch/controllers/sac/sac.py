@@ -38,6 +38,14 @@ class SAC(RLController):
         self.act_low = self._tensor(self.env.action_space.low)
         self.act_high = self._tensor(self.env.action_space.high)
 
+    def reset(self):
+        """A fresh results dict (SAC's training envs come with its training,
+        ROADMAP item 9)."""
+        self.setup_results_dict()
+
+    def setup_results_dict(self):
+        self.results_dict = {'obs': [], 'reward': [], 'done': [], 'info': [], 'action': []}
+
     def select_action(self, obs, info=None):
         """The deterministic action (tanh of the mean), as numpy float32."""
         with torch.no_grad():

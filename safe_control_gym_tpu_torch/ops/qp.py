@@ -14,6 +14,9 @@ the JAX solver's math:
 * 10 stages, each with the Cholesky inverse of ``P + sigma I + A' diag(rho)
   A``, one Newton-Schulz step on it, ``stage_iters`` relaxed ADMM
   iterations (alpha) and the rho update (x [0.2, 5], then into [1e-4, 1e4]);
+  with ``capture`` on a CUDA device, a stage's iterations replay as one
+  captured CUDA graph (about 17 launches an iteration otherwise, each a few
+  microseconds of device time but more of the host's);
 * ``tol=None``: uniform stages (JAX's ``lax.scan``); ``tol`` set: stages of
   geometrically growing size with the early exit (JAX's ``while_loop``);
 * ``polish``: the active-set KKT solve at three margins, one batched LU with
@@ -97,7 +100,8 @@ def _violation(Ax, l, u):
 @full_matmul_precision
 def admm_qp(P, q, A, l, u, x0=None, y0=None, rho: float = 0.1,
             sigma: float = 1e-6, alpha: float = 1.6, iters: int = 200,
-            tol: Optional[float] = None, polish: bool = False) -> QPSolution:
+            tol: Optional[float] = None, polish: bool = False,
+            capture: bool = False) -> QPSolution:
     """Solve B QPs by staged ADMM; returns a :class:`QPSolution`.
 
     Args:
@@ -111,6 +115,10 @@ def admm_qp(P, q, A, l, u, x0=None, y0=None, rho: float = 0.1,
         tol: early exit once the (equilibrated) primal residual < tol and
             the dual one < 10 tol, per problem; None runs every stage.
         polish: the active-set polish after ADMM.
+        capture: on a CUDA device, run each stage's iterations as one CUDA
+            graph replay (the same kernels; cuBLAS may round a product
+            differently under capture, so an answer near a polish tie can
+            move by rounding).
     """
     A = torch.as_tensor(A, dtype=torch.float32)
     B = A.shape[0] if A.dim() == 3 else 1
@@ -152,13 +160,8 @@ def admm_qp(P, q, A, l, u, x0=None, y0=None, rho: float = 0.1,
         # Newton-Schulz step squares its residual.
         Kinv = torch.cholesky_solve(eye.expand(B, n, n), torch.linalg.cholesky_ex(K)[0])
         Kinv = Kinv + Kinv @ (eye - K @ Kinv)
-        for _ in range(n_iter):
-            rhs = sigma * x - q + _vm(rho_vec * z - y, A)
-            x = _mv(Kinv, rhs)
-            Ax_rel = alpha * _mv(A, x) + (1 - alpha) * z
-            z_new = torch.clamp(Ax_rel + y / rho_vec, l, u)
-            y = y + rho_vec * (Ax_rel - z_new)
-            z = z_new
+        run = _captured_iterations if (capture and dev.type == 'cuda') else _iterations
+        x, z, y = run(x, z, y, Kinv, A, q, l, u, rho_vec, sigma, alpha, n_iter)
         Ax = _mv(A, x)
         pr = _inf_norm(Ax - z) + 1e-12
         dr = _inf_norm(_mv(P, x) + q + _vm(y, A)) + 1e-12
@@ -198,6 +201,57 @@ def admm_qp(P, q, A, l, u, x0=None, y0=None, rho: float = 0.1,
                                               sigma)
     return QPSolution(x=x * c, z=z, y=y * d, prim_res=prim_res, dual_res=dual_res,
                       iterations=iterations)
+
+
+def _iterations(x, z, y, Kinv, A, q, l, u, rho_vec, sigma, alpha, n_iter):
+    """``n_iter`` relaxed ADMM iterations with the stage's KKT inverse."""
+    for _ in range(n_iter):
+        rhs = sigma * x - q + _vm(rho_vec * z - y, A)
+        x = _mv(Kinv, rhs)
+        Ax_rel = alpha * _mv(A, x) + (1 - alpha) * z
+        z_new = torch.clamp(Ax_rel + y / rho_vec, l, u)
+        y = y + rho_vec * (Ax_rel - z_new)
+        z = z_new
+    return x, z, y
+
+
+# CUDA graphs of the iterations for one set of inputs' shapes (and device):
+# the static inputs they share, and a graph per (sigma, alpha, iteration
+# count), at most one per stage size. A call of other shapes frees them all
+# before it captures its own, so the device memory they hold is that of the
+# last shapes alone.
+_CAPTURED = {'shapes': None, 'static': None, 'graphs': {}}
+
+
+def _captured_iterations(x, z, y, Kinv, A, q, l, u, rho_vec, sigma, alpha, n_iter):
+    """``_iterations`` as one CUDA graph replay: the inputs are copied into
+    the graph's static tensors, the graph runs the n_iter iterations' launches
+    with no host work between them, and the outputs are copied out. The
+    graph is captured on the first call of its shapes and count (after one
+    iteration run on a side stream, as CUDA graphs need)."""
+    inputs = (x, z, y, Kinv, A, q, l, u, rho_vec)
+    shapes = (x.device, tuple(tuple(t.shape) for t in inputs))
+    if _CAPTURED['shapes'] != shapes:
+        _CAPTURED.update(shapes=None, static=None, graphs={})
+        _CAPTURED.update(shapes=shapes, static=[
+            torch.empty_like(t, memory_format=torch.contiguous_format) for t in inputs])
+    static, graphs = _CAPTURED['static'], _CAPTURED['graphs']
+    for buf, t in zip(static, inputs):
+        buf.copy_(t)
+    key = (float(sigma), float(alpha), int(n_iter))
+    if key not in graphs:
+        side = torch.cuda.Stream(device=x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            _iterations(*static, sigma, alpha, 1)
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = _iterations(*static, sigma, alpha, n_iter)
+        graphs[key] = (graph, outputs)
+    graph, outputs = graphs[key]
+    graph.replay()
+    return tuple(o.clone() for o in outputs)
 
 
 def _polish_kkt(P, q, A, l, u, x, sigma, eps_act):

@@ -12,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'safe_control_gym_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'chex', 'safe_control_gym_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'chex', 'safe_control_gym_tpu', 'gymnasium')
 
 
 def _port_sources():
@@ -66,6 +66,16 @@ def test_import_leaves_jax_out_of_sys_modules():
             'make("pid", partial(make, "quadrotor", device="cpu"))\n'
             'mpc = make("linear_mpc", partial(make, "cartpole", device="cpu"), horizon=3)\n'
             'mpc.reset(); mpc.select_action_batch(mpc.env._nominal_init_state()[None])\n'
+            'import safe_control_gym_tpu_torch.experiments.base_experiment\n'
+            'import safe_control_gym_tpu_torch.safety_filters.cbf.cbf_nn\n'
+            'box = [{"constraint_form": "default_constraint", "constrained_variable": v}'
+            ' for v in ("state", "input")]\n'
+            'sf = make("linear_mpsc", partial(make, "cartpole", device="cpu", constraints=box),'
+            ' horizon=3, n_samples=4)\n'
+            'sf.load("examples/mpsc/models/linear_mpsc_cartpole.pkl")\n'
+            'sf.certify_action_batch(sf.env._nominal_init_state()[None], [[0.0]])\n'
+            'make("cbf_nn", partial(make, "cartpole", device="cpu", constraints=box)).load('
+            '"examples/cbf/models/cbf_nn_cartpole.pt")\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)\n'
             'print(bad); sys.exit(1 if bad else 0)' % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -101,7 +111,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         benchmark_suite.measure_closed_loop_kernel('cartpole', batch=8, n_steps=8)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         make('sac', functools.partial(make, 'cartpole'))
-    for algo in ('lqr', 'ilqr', 'pid', 'mpc', 'linear_mpc', 'mpc_acados'):
+    for algo in ('lqr', 'ilqr', 'pid', 'mpc', 'linear_mpc', 'mpc_acados', 'linear_mpsc',
+                 'cbf', 'cbf_nn'):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             make(algo, functools.partial(make, 'quadrotor' if algo == 'pid' else 'cartpole'))
     ctrl = make('ppo', functools.partial(make, 'cartpole', device='cpu'))
@@ -111,3 +122,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         PPOAgent(ctrl.env.observation_space, ctrl.env.action_space)
     env = make('cartpole', device='cpu')
     assert env.device.type == 'cpu'
+    from safe_control_gym_tpu_torch.controllers.off_policy_utils import replay_init
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        replay_init({'obs': 4}, 8)
