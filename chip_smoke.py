@@ -2,11 +2,12 @@
 kernels, then drive the batched cartpole and quadrotor rollouts, the
 closed-loop evaluation of the committed RL models, PPO training, the
 model-based controllers (LQR, iLQR, PID), the MPC family (MPC, linear MPC,
-MPC_ACADOS) and the safety filters (linear MPSC, CBF, CBF-NN) through the
+MPC_ACADOS), GP-MPC with its batch and the scenario solve, and the safety
+filters (linear MPSC, CBF, CBF-NN) through the
 port's entry points.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase safety    # phases control, mpc, safety alone
+    python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety alone
                                             # (comma-separated), no result line
 
 Phases, one JSON line each:
@@ -126,16 +127,41 @@ Phases, one JSON line each:
                window), every card answer re-evaluated on the CPU (residual
                under the feasibility bound), its first MPC_GATE_ROWS problems
                against the port's CPU solve (actions, flags, costs);
- 13. safety    K1 at B=1 and 1 and 50 substeps and K2 at B=1 and 20 substeps
+ 13. gp_mpc    K1 at B=1 and 50 substeps and K2 at B=1 and 8 bit for bit
+               against their plain versions; then, every launch counter set
+               to 0 before and read after, make('gp_mpc', partial(make, env,
+               device='cuda', ...)) -> reset() -> learn() -> run():
+               gp_mpc_cartpole_stab (horizon 15, 80 samples, 150 Adam steps;
+               the first 45 of its 90 steps) and tests/test_gp_mpc.py's 2D
+               quad (horizon 10, 60 samples, 120 Adam steps, its 60 steps);
+               each loop's GPs against the port's CPU GPs trained on the
+               card's data, the fused tightening against the host reference
+               along the card's plans, each step against the CPU controller
+               fed the card's observation, warm start and GP data (phase
+               mpc's gate, capped-row counts equal), the replay through a
+               pallas_physics=False env, K1's or K2's launches exactly the
+               samples and the steps; 20 cartpole steps with online learning,
+               card against CPU; select_action_batch at B_GP (2 passes) on
+               examples/mpc/batched_gp_mpc_demo.py's problem (seconds,
+               solves/s, peak memory, a torch.profiler window), every answer
+               re-evaluated on the CPU, its first 64 rows against the CPU's
+               (flags and capped-row counts equal, actions by phase safety's
+               _agree, dynamics defects no larger than the CPU's own);
+               select_action_scenarios
+               with 16 pole lengths on examples/mpc/scenario_mpc_demo.py's
+               problem, 10 steps of the multiple-model pick card against CPU;
+               a torch.profiler window of two cartpole loop steps;
+ 14. safety    K1 at B=1 and 1 and 50 substeps and K2 at B=1 and 20 substeps
                bit for bit against their plain versions; then, every launch
                counter set to 0 before and read after, through
                BaseExperiment(...).run_evaluation and make('linear_mpsc' |
                'cbf' | 'cbf_nn', partial(make, env, device='cuda', ...)):
                BASELINE.json's fifth config (SAC on the 2D quad, the committed
                model, uncertified, then certified by linear MPSC loaded from
-               the committed P; 250 steps each, K2's launches exactly the
-               steps); learn() on examples/mpsc/batched_certification_demo.py's
-               cartpole (n_samples 120: collection, descent and search timed;
+               the committed P; the 250-step episode uncertified, its first
+               125 steps certified, K2's launches exactly the steps); learn()
+               on examples/mpsc/batched_certification_demo.py's cartpole
+               (n_samples 120: collection, descent and search timed;
                its P's blocks certified in float64 and its log det against
                the CPU's on the same residuals, computed in a worker process);
                certify_action_batch at B_SAFETY on the demo's states and
@@ -151,11 +177,12 @@ Phases, one JSON line each:
                phase's constants); config 5's ms a certification with the
                QP's stages launched and captured, in turns, and a
                torch.profiler window of two of its steps;
- 14. kernels   one entry per kernel with its launches, error, times and bound
+ 15. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
                control, mpc_launches, mpc_shape and grad_max_abs_err, from
-               phase mpc, and safety_launches and safety_shape, from phase
+               phase mpc, gp_mpc_launches and gp_mpc_shape, from phase
+               gp_mpc, and safety_launches and safety_shape, from phase
                safety).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
@@ -288,6 +315,85 @@ GRAD_T = 8
 GRAD_DEMO = dict(seed=0, ctrl_freq=15, pyb_freq=750, init_state={'init_theta': 0.4},
                  randomized_init=False, cost='quadratic')
 
+# Phase gp_mpc: K1 at B=1 and 50 substeps and K2 at B=1 and 8 (the GP-MPC
+# loops' counts: 15 Hz over 750 Hz, 30 over 240) bit for bit against their
+# plain versions. Each loop's GPs, learned on the card, against the port's
+# CPU GPs trained on the card's own data: log-parameters within GP_ATOL, and
+# the posterior mean and variance at GP_POINTS points within GP_ATOL of
+# max(1, |value|). The fused tightening (tensors on the card) against the
+# host reference _constraint_tightening along the card's own previous
+# plans: within GP_TIGHTEN_RTOL of the largest row, capped-row counts
+# equal. Each loop step against the port's CPU controller fed the card's
+# observation, warm start and GP data (phase mpc's _mpc_gate: MPC_AGREE_SHARE
+# of the actions within MPC_ATOL, every answer re-evaluated on the CPU), and
+# the capped-row counts equal; replays through a pallas_physics=False env,
+# 0.0; K1's and K2's launches exactly the learn samples and the loop steps.
+# The batch (select_action_batch, GP_PASSES passes) at B_GP: every answer
+# re-evaluated on the CPU (its initial state and constraints under the
+# feasibility bound), its first GP_GATE_ROWS against the CPU's batch: flags
+# and capped-row counts equal; actions within MPC_ATOL or, where the CPU's
+# own answer moves by more (alone, and to the state changed by
+# SAFETY_PERTURB relative, GP_PERTURBED draws), within MPC_ATOL of one of
+# those answers (phase safety's _agree); each row's dynamics defect under
+# the GP dynamics at most MPC_ATOL over the CPU's own on the same problem
+# (the largest of its answers' where it gave several). The batch's cold SQP
+# leaves some problems unconverged, their plans' defects up to 1.1 (in the
+# JAX package as well), and the CPU's own answers to them spread by 2e-4 to
+# 2.6e-3 under such changes: 13 widths of the 2e-4 window that _agree
+# accepts about an answer, more than phase safety's 8 draws can cover, so
+# GP_PERTURBED is 64. Scenarios likewise, candidate by candidate.
+GP_ATOL = 1e-4
+GP_POINTS = 64
+GP_TIGHTEN_RTOL = 1e-5
+GP_CARTPOLE_STEPS = 45          # the first 45 of gp_mpc_cartpole_stab's 90 steps
+GP_ONLINE_STEPS = 20
+B_GP = 4096
+GP_GATE_ROWS = 64
+GP_PASSES = 2
+GP_PERTURBED = 64
+# tests/test_gp_mpc.py's 2D quad (30 Hz over 8 substeps, 60 steps, mass prior
+# 0.035, horizon 10, 60 samples, 120 Adam steps).
+GP_QUAD_TASK = dict(seed=42, cost='quadratic', quad_type=2, ctrl_freq=30, pyb_freq=240,
+                    episode_len_sec=2, randomized_init=False,
+                    init_state={'init_x': 0.3, 'init_x_dot': 0, 'init_z': 1.0, 'init_z_dot': 0,
+                                'init_theta': 0, 'init_theta_dot': 0},
+                    task='stabilization',
+                    task_info={'stabilization_goal': [0, 1],
+                               'stabilization_goal_tolerance': 0.005},
+                    done_on_out_of_bound=False,
+                    constraints=[{'constraint_form': 'default_constraint',
+                                  'constrained_variable': 'input'}])
+GP_QUAD_ALGO = dict(q_mpc=[5, 0.1, 5, 0.1, 0.1, 0.1], r_mpc=[0.1, 0.1], horizon=10,
+                    prior_info={'prior_prop': {'M': 0.035}}, train_iterations=1,
+                    num_samples=60, optimization_iterations=120, sparse_gp=False, seed=0)
+# examples/mpc/batched_gp_mpc_demo.py's problem (horizon 15, numpy seed 0).
+GP_DEMO_TASK = dict(seed=0, cost='quadratic', ctrl_freq=15, pyb_freq=750,
+                    constraints=[{'constraint_form': 'default_constraint',
+                                  'constrained_variable': 'input'},
+                                 {'constraint_form': 'default_constraint',
+                                  'constrained_variable': 'state'}],
+                    task_info={'stabilization_goal': [0.0],
+                               'stabilization_goal_tolerance': 0.01},
+                    randomized_init=False)
+GP_DEMO_ALGO = dict(q_mpc=[1], r_mpc=[0.1], horizon=15,
+                    prior_info={'prior_prop': {'pole_length': 1.0}}, num_samples=60,
+                    optimization_iterations=120, seed=0)
+# examples/mpc/scenario_mpc_demo.py: 16 pole lengths (numpy seed 0, the
+# nominal 0.5 first) against a true 0.9, the multiple-model pick for
+# SCENARIO_STEPS steps.
+N_SCENARIOS = 16
+SCENARIO_STEPS = 10
+SCENARIO_TASK = dict(seed=42, cost='quadratic', ctrl_freq=15, pyb_freq=750, episode_len_sec=6,
+                     randomized_init=False, init_state={'init_theta': 0.15},
+                     task_info={'stabilization_goal': [0.0],
+                                'stabilization_goal_tolerance': 0.0},
+                     inertial_prop={'pole_length': 0.9}, done_on_out_of_bound=False,
+                     constraints=[{'constraint_form': 'default_constraint',
+                                   'constrained_variable': 'input'}])
+SCENARIO_MPC = dict(q_mpc=[5, 0.1, 5, 0.1], r_mpc=[0.1], horizon=15, warmstart=True,
+                    sqp_iters=2, use_lqr_gain_and_terminal_cost=True,
+                    prior_info={'prior_prop': {'pole_length': 0.5}})
+
 # Phase safety: every certification of the card's closed loops held to the
 # port's CPU filter fed the card's state, the same uncertified action and
 # the same warm state (the last plan, the QP's warm start and kinf): the
@@ -395,7 +501,9 @@ ROLLOUT = {  # whole-rollout kernel of each system
 
 
 def emit(phase, **fields):
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    # t_s: seconds since the script started (before torch's import).
+    print(json.dumps({'phase': phase, **fields,
+                      't_s': round(time.perf_counter() - _T_START, 3)}), flush=True)
 
 
 def card():
@@ -693,10 +801,20 @@ def _counters():
         + [getattr(rk, m['name']) for m in ROLLOUT.values()]
 
 
-def main_path(dev, smi):
-    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+def _zero_launches():
     for fn in _counters():
         fn.launches = 0
+
+
+def _launches(before=None):
+    """Each kernel's launch count, less its count in ``before`` where given."""
+    return {fn.__name__: fn.launches - (before[fn.__name__] if before else 0)
+            for fn in _counters()}
+
+
+def main_path(dev, smi):
+    from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
+    _zero_launches()
     rows = {}
     for system in SYSTEMS:
         for constrained in (False, True):
@@ -716,7 +834,7 @@ def main_path(dev, smi):
         rows[f'rollout {system} constrained={constrained} tracking={tracking}'] = dict(
             path=f'whole-rollout ({ROLLOUT[system]["id"]})', system=system, batch=B,
             T=T_ROLLOUT, ctrl_steps_per_s=sps, speedup=su, card=smi, **ex)
-    launches = {fn.__name__: fn.launches for fn in _counters()}
+    launches = _launches()
     for row_name, row in rows.items():
         emit('main_path', row=row_name, **row)
     emit('main_path', launches=launches)
@@ -995,7 +1113,7 @@ def check_policy(system, dev, length=None):
 
 def _policy_counts():
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
-    counts = {fn.__name__: fn.launches for fn in _counters()}
+    counts = _launches()
     counts.update({f'{m["name"]}.policy': getattr(rk, m['name']).policy_launches
                    for m in ROLLOUT.values()})
     return counts
@@ -1008,8 +1126,7 @@ def closed_loop(dev, smi):
     from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
     from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
     from safe_control_gym_tpu_torch.utils.registration import make
-    for fn in _counters():
-        fn.launches = 0
+    _zero_launches()
     for m in ROLLOUT.values():
         getattr(rk, m['name']).policy_launches = 0
     rows = {}
@@ -1190,14 +1307,13 @@ def ppo_train(dev, smi):
     rows = {}
     with tempfile.TemporaryDirectory() as out_dir:
         ctrl, algo = _ppo('cartpole', dev, out_dir)
-        for fn in _counters():
-            fn.launches = 0
+        _zero_launches()
         wall = _train(ctrl)
         learn_launches = pk.cartpole_advance.launches
         t0 = time.perf_counter()
         res = ctrl.run(n_episodes=10)
         eval_s = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in _counters()}
+        launches = _launches()
         steps_per_iter = ctrl.N * ctrl.T
         iterations = ctrl.total_steps // steps_per_iter
         eval_steps = ctrl.eval_env.func.max_steps + 1
@@ -1239,10 +1355,9 @@ def ppo_train(dev, smi):
         for system, kernel in (('quadrotor_2D', 'quad2d_advance'),
                                ('quadrotor_3D', 'quad3d_advance')):
             ctrl, _ = _ppo(system, dev, out_dir, iterations=PPO_QUAD_ITERATIONS)
-            for fn in _counters():
-                fn.launches = 0
+            _zero_launches()
             wall = _train(ctrl)
-            launches = {fn.__name__: fn.launches for fn in _counters()}
+            launches = _launches()
             iterations = ctrl.total_steps // (ctrl.N * ctrl.T)
             last = ctrl.last_results
             row = dict(system=system, envs=ctrl.N, T=ctrl.T, hidden=int(ctrl.hidden_dim),
@@ -1377,19 +1492,18 @@ def control(dev, smi):
     warm.solve_batch(np.repeat(warm.env._nominal_init_state()[None], 2, axis=0))
     warm.max_iterations = iterations
     rows = {}
-    for fn in _counters():
-        fn.launches = 0
+    _zero_launches()
     for name, env_id, task, algo, source, spread, strict in solves:
         ctrl = ctrls[name]
         nominal = np.asarray(ctrl.env._nominal_init_state(), np.float32)
         x0s = nominal + np.random.default_rng(0).uniform(
             -spread, spread, (B_CONTROL, nominal.shape[0])).astype(np.float32)
-        before = {fn.__name__: fn.launches for fn in _counters()}
+        before = _launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = ctrl.solve_batch(x0s)
         seconds = time.perf_counter() - t0
-        moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+        moved = _launches(before)
         G = CONTROL_GATE_ROWS
         cpu = make('ilqr', functools.partial(make, env_id, device='cpu', **task), **algo)
         t0 = time.perf_counter()
@@ -1494,7 +1608,7 @@ def control(dev, smi):
     emit('control', part='pid closed loop, card against CPU', **row)
     if not (row['state_max_abs_err'] <= CONTROL_ATOL and row['action_max_abs_err'] <= CONTROL_ATOL):
         raise RuntimeError(f'control pid quadrotor_3D: card and CPU differ: {row}')
-    launches = {fn.__name__: fn.launches for fn in _counters()}
+    launches = _launches()
     emit('control', launches=launches)
     for m in PHYSICS.values():
         if launches[m['name']] <= 0:
@@ -1589,9 +1703,11 @@ def _mpc_run(ctrl, max_steps=None):
     def recording(obs, info=None):
         warm = None if ctrl.x_prev is None else (
             ctrl.x_prev.copy(), np.array(ctrl.u_prev), tuple(np.array(a) for a in ctrl._qp_warm))
+        # GP-MPC's last transition, which online learning adds before a solve.
+        online = (getattr(ctrl, 'last_obs', None), getattr(ctrl, 'last_action', None))
         action = select(obs, info)
         record.append(dict(obs=np.array(obs), info=info, warm=warm, action=np.array(action),
-                           x=ctrl.x_prev.copy(), u=np.array(ctrl.u_prev)))
+                           x=ctrl.x_prev.copy(), u=np.array(ctrl.u_prev), online=online))
         return action
     ctrl.select_action = recording
     torch.cuda.synchronize()
@@ -1602,19 +1718,21 @@ def _mpc_run(ctrl, max_steps=None):
     return res, record, wall
 
 
-def _mpc_reeval(ctrl, obs, goal, X, U):
+def _mpc_reeval(ctrl, obs, goal, X, U, dynamics=True):
     """The NLP residual (the horizon's dynamics defect under ``ctrl``'s
-    dynamics, its initial-state error and constraint violation) and the cost
-    of B horizons X (B, T+1, nx) and U (B, T, nu) from the observations obs
-    (B, nx) toward goal (nx, T+1), on ``ctrl``'s device: two (B,) arrays."""
+    dynamics, its initial-state error and constraint violation; without
+    ``dynamics`` the last two) and the cost of B horizons X (B, T+1, nx) and
+    U (B, T, nu) from the observations obs (B, nx) toward goal (nx, T+1), on
+    ``ctrl``'s device: two (B,) arrays."""
     nx, nu, T = ctrl.model.nx, ctrl.model.nu, ctrl.T
     X = np.asarray(X, np.float32)
     U = np.asarray(U, np.float32).reshape(-1, T, nu)
     Xt, Ut = torch.tensor(X), torch.tensor(U)
     n = X.shape[0]
-    fx = torch.func.vmap(ctrl.dynamics_func)(Xt[:, :-1].reshape(-1, nx), Ut.reshape(-1, nu))
-    res = np.maximum(np.abs(fx.numpy().reshape(n, T, nx) - X[:, 1:]).max(axis=(1, 2)),
-                     np.abs(X[:, 0] - obs[:, :nx]).max(axis=1))
+    res = np.abs(X[:, 0] - obs[:, :nx]).max(axis=1)
+    if dynamics:
+        fx = torch.func.vmap(ctrl.dynamics_func)(Xt[:, :-1].reshape(-1, nx), Ut.reshape(-1, nu))
+        res = np.maximum(res, np.abs(fx.numpy().reshape(n, T, nx) - X[:, 1:]).max(axis=(1, 2)))
     for fns, V in ((ctrl.state_constraints_sym, Xt), (ctrl.input_constraints_sym, Ut)):
         for f in fns:
             res = np.maximum(res, f(V.reshape(-1, V.shape[-1])).reshape(n, -1).amax(1).numpy())
@@ -1637,6 +1755,8 @@ def _mpc_gate(cpu, record):
     nu, T = cpu.model.nu, cpu.T
     for step in record:
         _set_warm(cpu, step['warm'])
+        if hasattr(cpu, 'last_obs'):
+            cpu.last_obs, cpu.last_action = step['online']
         action = cpu.select_action(step['obs'], step['info'])
         goal = cpu.get_references(cpu.extract_step(step['info']))
         obs = np.asarray(step['obs'], np.float32)[None]
@@ -1698,14 +1818,13 @@ def mpc(dev, smi):
             c.reset()
     # One batch of two problems first: torch.func's first use is set-up.
     ctrls['mpc'][0].select_action_batch(np.zeros((2, 4), np.float32))
-    for fn in _counters():
-        fn.launches = 0
+    _zero_launches()
     for algo, system, task, kname, max_steps in loops:
         env_id, task_cfg, _ = control_config(algo, system, task)
         card_ctrl, cpu = ctrls[algo]
-        before = {fn.__name__: fn.launches for fn in _counters()}
+        before = _launches()
         res, record, wall = _mpc_run(card_ctrl, max_steps)
-        moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+        moved = _launches(before)
         steps = len(res['action'])
         state_rmse, total_rmse = compute_state_rmse(np.array(res['state_error']))
         gate = _mpc_gate(cpu, record)
@@ -1733,13 +1852,12 @@ def mpc(dev, smi):
                             device_busy_share=p_busy / p_wall)
         rows[algo] = row
         emit('mpc', part='closed loop, card against CPU', **row)
-        if moved[kname] != steps or sum(moved.values()) != steps:
-            raise RuntimeError(f'mpc {algo}: launches {moved}, expected {steps} of {kname} alone')
+        _expect_launches(f'mpc {algo}', moved, kname, steps)
         if steps < 1 or not np.isfinite(total_rmse):
             raise RuntimeError(f'mpc {algo}: no finite closed loop: {steps} steps, rmse {total_rmse}')
         if not (gate['ok'] and gate['replay_plain_max_abs_err'] == 0.0):
             raise RuntimeError(f'mpc {algo}: the card\'s loop fails its gate: {gate}')
-    launches = {fn.__name__: fn.launches for fn in _counters()}
+    launches = _launches()
     emit('mpc', launches=launches)
     for name in ('cartpole_advance', 'quad2d_advance'):
         if launches[name] <= 0:
@@ -1805,9 +1923,334 @@ def mpc(dev, smi):
     return launches, rows
 
 
+def _expect_launches(label, moved, kname, n):
+    if moved[kname] != n or sum(moved.values()) != n:
+        raise RuntimeError(f'{label}: launches {moved}, expected {n} of {kname} alone')
+
+
+def _gp_learn(card, kname):
+    """``card.learn()`` on the card, its launches and its seconds (collection,
+    training)."""
+    before = _launches()
+    t0 = time.perf_counter()
+    card.learn()
+    torch.cuda.synchronize()
+    seconds = dict(card.learn_seconds, total_s=time.perf_counter() - t0)
+    _expect_launches('gp_mpc learn', _launches(before), kname, card.num_samples)
+    return seconds
+
+
+def _gp_check(card, cpu):
+    """The card's GPs against ``cpu``'s trained on the CPU on the card's data:
+    log-parameters, and posterior mean and variance at GP_POINTS points
+    (uniform over the data's box, numpy seed 0)."""
+    t0 = time.perf_counter()
+    cpu.train_gp(input_data=card.data_inputs, target_data=card.data_targets)
+    cpu_s = time.perf_counter() - t0
+    param_err = max(float((gc.params[k].cpu() - gh.params[k]).abs().max())
+                    for gc, gh in zip(card.gaussian_process.gps, cpu.gaussian_process.gps)
+                    for k in gc.params)
+    lo, hi = card.data_inputs.min(axis=0), card.data_inputs.max(axis=0)
+    pts = np.random.default_rng(0).uniform(lo, hi, (GP_POINTS, lo.size))
+    (m_c, v_c), (m_h, v_h) = (c.gaussian_process.predict(pts) for c in (card, cpu))
+    rel = lambda a, b: float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+    row = dict(n_data=int(card.data_inputs.shape[0]), adam_steps=card.optimization_iterations,
+               log_param_max_abs_err=param_err, mean_max_rel_err=rel(m_c, m_h),
+               var_max_rel_err=rel(v_c, v_h), points=GP_POINTS, atol=GP_ATOL,
+               cpu_training_s=cpu_s)
+    row['ok'] = bool(param_err <= GP_ATOL and row['mean_max_rel_err'] <= GP_ATOL
+                     and row['var_max_rel_err'] <= GP_ATOL)
+    return row
+
+
+def _gp_tightening(card, record):
+    """The card's fused tightening against its host reference along the
+    card's own previous plans at up to four recorded steps."""
+    steps = [s for s in record if s['warm'] is not None]
+    errs, binds = [], []
+    for step in steps[::max(1, len(steps) // 4)][:4]:
+        _set_warm(card, step['warm'])
+        hs, hu = (t[0].cpu().numpy() for t in card._constraint_tightening(0))
+        host_binds = card._last_cap_binds
+        X, U, has_prev = card._previous_plan()
+        fs, fu, fb = card._tighten(X, U, card._tighten_params, has_prev)
+        scale = max(float(np.abs(hs).max(initial=0.0)), float(np.abs(hu).max(initial=0.0)))
+        errs.append(max(float(np.abs(fs[0].cpu().numpy() - hs).max(initial=0.0)),
+                        float(np.abs(fu[0].cpu().numpy() - hu).max(initial=0.0)))
+                    / max(scale, 1e-30))
+        binds.append((int(fb[0]), host_binds))
+    row = dict(steps=len(errs), max_rel_err=max(errs), rtol=GP_TIGHTEN_RTOL,
+               binds_fused_host=binds)
+    row['ok'] = bool(row['max_rel_err'] <= GP_TIGHTEN_RTOL and all(a == b for a, b in binds))
+    return row
+
+
+def _gp_loop(label, card, cpu, env_id, task_cfg, dev, kname, max_steps, smi, start=None):
+    """One closed loop of ``card`` through ``run()``, gated against ``cpu``
+    (the port's CPU controller) fed the card's GP data (its state ``start``
+    before the loop, where online learning changes it, else after),
+    observations, warm starts and last transitions; the replay through a
+    pallas_physics=False card env; launches."""
+    from safe_control_gym_tpu_torch.controllers.mpc.mpc_utils import compute_state_rmse
+    before = _launches()
+    res, record, wall = _mpc_run(card, max_steps)
+    moved = _launches(before)
+    steps = len(res['action'])
+    _expect_launches(f'gp_mpc {label}', moved, kname, steps)
+    state_rmse, total_rmse = compute_state_rmse(np.array(res['state_error']))
+    cpu.load_state_dict(start if start is not None else card.state_dict())
+    cpu.setup_results_dict()
+    gate = _mpc_gate(cpu, record)
+    gate['binds_equal'] = cpu.results_dict['tightening_cap_binds'] == res['tightening_cap_binds']
+    gate['replay_plain_max_abs_err'] = _mpc_replay(env_id, task_cfg, dev, res)
+    row = dict(loop=label, horizon=card.T, sqp_iters=card.sqp_iters, n_z=card._n_z,
+               m_rows=card._m_rows, n_substeps=card.env.PYB_STEPS_PER_CTRL, steps=steps,
+               episode_len=card.env.CTRL_STEPS, wall_s=wall,
+               ms_per_step_median=1e3 * float(np.median(res['t_wall'])),
+               ms_per_step_mean=1e3 * float(np.mean(res['t_wall'])),
+               tracking_rmse=float(total_rmse), state_rmse=state_rmse.tolist(),
+               capped_rows_per_step_max=int(max(res['tightening_cap_binds'])),
+               launches=moved, gate=gate, agree_share_gate=MPC_AGREE_SHARE, atol=MPC_ATOL,
+               card=smi)
+    if steps < 1 or not np.isfinite(total_rmse):
+        raise RuntimeError(f'gp_mpc {label}: no finite closed loop: {steps} steps')
+    if not (gate['ok'] and gate['binds_equal'] and gate['replay_plain_max_abs_err'] == 0.0):
+        raise RuntimeError(f'gp_mpc {label}: the card\'s loop fails its gate: {gate}')
+    return row, record
+
+
+def _gp_pair(dev, env_id, task_cfg, algo_cfg):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    pair = [make('gp_mpc', functools.partial(make, env_id, device=d, **task_cfg), **algo_cfg)
+            for d in (dev, 'cpu')]
+    for c in pair:
+        c.reset()
+    return pair
+
+
+def _gp_batch(dev, smi):
+    """select_action_batch at B_GP on batched_gp_mpc_demo.py's problem, after
+    learn() on the card."""
+    card, cpu = _gp_pair(dev, 'cartpole', GP_DEMO_TASK, GP_DEMO_ALGO)
+    learn = _gp_learn(card, 'cartpole_advance')
+    cpu.load_state_dict(card.state_dict())
+    x0s = np.random.default_rng(0).uniform(-0.3, 0.3, (B_GP, 4)).astype(np.float32)
+    card.select_action_batch(x0s, passes=GP_PASSES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u, feasible, binds = card.select_action_batch(x0s, passes=GP_PASSES)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    its = torch.stack(card.qp_iterations).cpu().numpy()
+    X_c, U_c = (t.cpu().numpy() for t in card.batch_horizons)
+    G = GP_GATE_ROWS
+    t0 = time.perf_counter()
+    u_h, f_h, b_h = cpu.select_action_batch(x0s[:G], passes=GP_PASSES)
+    cpu_seconds = time.perf_counter() - t0
+    # Every card answer re-evaluated on the CPU: its initial state and its
+    # constraints under the feasibility bound, and its dynamics defect under
+    # the GP dynamics. Two SQP iterations a pass from a cold start leave
+    # defects near 1 on some problems, in the JAX package too, so a gate
+    # row's defect is held to the CPU's own on the same problem (the largest
+    # of its answers' where the card's answer is one of several).
+    goal = cpu.get_references(0)
+    res_card, _ = _mpc_reeval(cpu, x0s, goal, X_c, U_c, dynamics=False)
+    defect_card, _ = _mpc_reeval(cpu, x0s, goal, X_c, U_c)
+    defect_cpu, _ = _mpc_reeval(cpu, x0s[:G], goal, *(t.numpy() for t in cpu.batch_horizons))
+    bound = cpu.feas_tol * cpu._feas_scale(x0s, goal)
+    err = np.abs(u[:G] - u_h).max(axis=1)
+    agree = []
+    for i in np.flatnonzero(err > MPC_ATOL):
+        answers, defects = [], []
+        for x in (x0s[i:i + 1], _perturbed(x0s[i], GP_PERTURBED)):
+            answers += list(cpu.select_action_batch(x, passes=GP_PASSES)[0])
+            defects += list(_mpc_reeval(cpu, x, goal, *(t.numpy()
+                                                         for t in cpu.batch_horizons))[0])
+        defect_cpu[i] = max(defect_cpu[i], *defects)
+        agree.append(dict(row=int(i), card_err=float(err[i]), card_defect=float(defect_card[i]),
+                          **_agree(u[i], u_h[i], answers, atol=MPC_ATOL)))
+    defect_over = defect_card[:G] - defect_cpu
+    b_wall, b_busy, b_kernels = _profiled(
+        lambda: card.select_action_batch(x0s, passes=GP_PASSES))
+    row = dict(source='examples/mpc/batched_gp_mpc_demo.py', B=B_GP, passes=GP_PASSES,
+               horizon=card.T, sqp_iters=card.sqp_iters, n_z=card._n_z, m_rows=card._m_rows,
+               gp_points=int(card.data_inputs.shape[0]), learn=learn,
+               learn_samples=card.num_samples, seconds=seconds,
+               solves_per_s=B_GP / seconds, feasible_share=float(feasible.mean()),
+               capped_share=float((binds > 0).mean()),
+               admm_iterations_per_qp_max=its.max(axis=1).tolist(),
+               peak_memory_bytes=int(peak), gate_rows=G, cpu_seconds=cpu_seconds,
+               action_max_abs_err=float(err.max()),
+               rows_within_atol_share=float((err <= MPC_ATOL).mean()), rows_beyond_atol=agree,
+               rows_agree=all(a['ok'] for a in agree),
+               flags_equal=bool(np.array_equal(feasible[:G], f_h)),
+               binds_equal=bool(np.array_equal(binds[:G], b_h)), reeval_rows=B_GP,
+               reeval_feasible_rows_over_bound=int((res_card[feasible] > bound[feasible]).sum()),
+               reeval_residual_over_bound_max=float((res_card / bound)[feasible].max()),
+               reeval_dynamics_defect_max=float(defect_card.max()),
+               reeval_defect_under_bound_share=float((defect_card <= bound).mean()),
+               gate_rows_defect_over_cpu_max=float(defect_over.max()),
+               atol=MPC_ATOL,
+               trace=dict(window=f'one select_action_batch, B={B_GP}, under torch.profiler',
+                          seconds=b_wall, device_busy_s=b_busy, kernels=b_kernels,
+                          device_busy_share=b_busy / b_wall),
+               card=smi)
+    if not (np.isfinite(u).all() and feasible.any() and row['rows_agree'] and row['flags_equal']
+            and row['binds_equal'] and row['reeval_feasible_rows_over_bound'] == 0
+            and row['gate_rows_defect_over_cpu_max'] <= MPC_ATOL):
+        raise RuntimeError(f'gp_mpc select_action_batch: the card differs from the CPU: {row}')
+    return row
+
+
+def _gp_scenarios(dev, smi):
+    """scenario_mpc_demo.py's multiple-model pick over N_SCENARIOS pole
+    lengths for SCENARIO_STEPS steps of a card env: each step's candidates
+    and flags against the port's CPU solve of the same state, the pick equal."""
+    from safe_control_gym_tpu_torch.controllers.mpc.mpc import MPC
+    from safe_control_gym_tpu_torch.envs.dynamics import (CartPoleParams, cartpole_dynamics,
+                                                          rk4_step)
+    from safe_control_gym_tpu_torch.utils.registration import make
+
+    class ScenarioMPC(MPC):
+        def dynamics_func_param(self, x, u, p):
+            return rk4_step(cartpole_dynamics, x, u, self.dt, CartPoleParams(**p))
+
+    card, cpu = (ScenarioMPC(functools.partial(make, 'cartpole', device=d, **SCENARIO_TASK),
+                             **SCENARIO_MPC) for d in (dev, 'cpu'))
+    card.reset()
+    cpu.reset()
+    lengths = np.random.default_rng(0).uniform(0.4, 1.0, N_SCENARIOS)
+    lengths[0] = 0.5
+    full = lambda v: np.full(N_SCENARIOS, v, np.float32)
+    scen = dict(pole_length=lengths.astype(np.float32), pole_mass=full(0.1), cart_mass=full(1.0),
+                gravity=full(9.8))
+    params = CartPoleParams(**{k: torch.tensor(v) for k, v in scen.items()})
+    env = make('cartpole', device=dev, **SCENARIO_TASK)
+    obs, _ = env.reset()
+    before = _launches()
+    score, prev, rows, walls = np.zeros(N_SCENARIOS), None, [], []
+    for _ in range(SCENARIO_STEPS):
+        x = np.asarray(obs, np.float32)[:4]
+        if prev is not None:
+            pred = rk4_step(cartpole_dynamics, torch.tensor(prev[0]).expand(N_SCENARIOS, 4),
+                            torch.tensor(prev[1]).expand(N_SCENARIOS, 1), card.dt, params)
+            score = 0.9 * score + np.linalg.norm(pred.numpy() - x[None], axis=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u_c, f_c = card.select_action_scenarios(x, scen)
+        walls.append(time.perf_counter() - t0)
+        u_h, f_h = cpu.select_action_scenarios(x, scen)
+        err = np.abs(u_c - u_h).max(axis=1)
+        beyond = np.flatnonzero(err > MPC_ATOL)
+        changed = [cpu.select_action_scenarios(v, scen)[0]
+                   for v in _perturbed(x, GP_PERTURBED)] if beyond.size else []
+        ok = [_agree(u_c[k], u_h[k], [c[k] for c in changed], atol=MPC_ATOL)['ok']
+              for k in beyond]
+        pick_c = int(np.argmin(np.where(f_c, score, np.inf)))
+        pick_h = int(np.argmin(np.where(f_h, score, np.inf)))
+        rows.append((float(err.max()), all(ok), bool(np.array_equal(f_c, f_h)),
+                     pick_c == pick_h))
+        prev = (x, np.atleast_1d(u_c[pick_c]).astype(np.float32))
+        obs, _, _, _ = env.step(u_c[pick_c])
+    moved = _launches(before)
+    _expect_launches('gp_mpc scenarios', moved, 'cartpole_advance', SCENARIO_STEPS)
+    err, agree, flags, picks = zip(*rows)
+    row = dict(source='examples/mpc/scenario_mpc_demo.py', scenarios=N_SCENARIOS,
+               steps=SCENARIO_STEPS, horizon=card.T, sqp_iters=card.sqp_iters,
+               ms_per_step_median=1e3 * float(np.median(walls)),
+               candidate_max_abs_err=max(err), candidates_agree=all(agree),
+               flags_equal=all(flags), picks_equal=all(picks),
+               identified_pole_length=float(lengths[int(np.argmin(score))]),
+               launches=moved, atol=MPC_ATOL, card=smi)
+    if not (row['candidates_agree'] and row['flags_equal'] and row['picks_equal']):
+        raise RuntimeError(f'gp_mpc scenarios: the card differs from the CPU: {row}')
+    return row
+
+
+def gp_mpc(dev, smi):
+    """The slice's main path: make('gp_mpc', partial(make, env, device='cuda',
+    ...)) -> reset() -> learn() -> run(), K1 or K2 stepping every loop and
+    every bootstrap sample; online learning, select_action_batch at B_GP and
+    the scenario solve; see the module docstring."""
+    from safe_control_gym_tpu_torch.experiments.control_configs import control_config
+    t_phase = time.perf_counter()
+    rows = {'checks': _bit_checks(dev, 'gp_mpc', [('cartpole', 1, 50, 1.0 / 750),
+                                                  ('quadrotor', 1, 8, 1.0 / 240)])}
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+    _zero_launches()
+    loops = [('cartpole', *control_config('gp_mpc', 'cartpole', 'stab'), 'cartpole_advance',
+              GP_CARTPOLE_STEPS),
+             ('quadrotor_2D', 'quadrotor', GP_QUAD_TASK, GP_QUAD_ALGO, 'quad2d_advance', None)]
+    card_cartpole = None
+    for system, env_id, task_cfg, algo_cfg, kname, max_steps in loops:
+        t0 = time.perf_counter()
+        card, cpu = _gp_pair(dev, env_id, task_cfg, algo_cfg)
+        learn = _gp_learn(card, kname)
+        gp_row = _gp_check(card, cpu)
+        row, record = _gp_loop(system, card, cpu, env_id, task_cfg, dev, kname, max_steps, smi)
+        row.update(learn=learn, learn_samples=card.num_samples, gp=gp_row,
+                   tightening=_gp_tightening(card, record))
+        if system == 'cartpole':
+            # Two loop steps under torch.profiler: kernels a step, busy share.
+            k = len(record) // 2
+            _set_warm(card, record[k]['warm'])
+            p_wall, p_busy, p_kernels = _profiled(lambda: [
+                card.select_action(s['obs'], s['info']) for s in record[k:k + 2]])
+            row['trace'] = dict(window='two select_action steps under torch.profiler',
+                                seconds=p_wall, device_busy_s=p_busy, kernels=p_kernels,
+                                kernels_per_step=p_kernels / 2, device_busy_share=p_busy / p_wall)
+            card_cartpole = card
+        rows[system] = row
+        seconds[system] = time.perf_counter() - t0
+        emit('gp_mpc', part='learn and closed loop, card against CPU', system=system, **row)
+        if not (gp_row['ok'] and row['tightening']['ok']):
+            raise RuntimeError(f'gp_mpc {system}: GP or tightening gate fails: {gp_row}, '
+                               f'{row["tightening"]}')
+    # Online learning: the cartpole's GPs trained on the same data with
+    # GP_ONLINE_STEPS padded slots (train_gp pads with online_learning).
+    t0 = time.perf_counter()
+    env_id, task_cfg, algo_cfg = control_config('gp_mpc', 'cartpole', 'stab')
+    card, cpu = _gp_pair(dev, env_id, task_cfg, dict(algo_cfg, online_learning=True,
+                                                       online_buffer=GP_ONLINE_STEPS))
+    card.train_gp(input_data=card_cartpole.data_inputs, target_data=card_cartpole.data_targets)
+    row, _ = _gp_loop('cartpole online', card, cpu, env_id, task_cfg, dev, 'cartpole_advance',
+                      GP_ONLINE_STEPS, smi, start=card.state_dict())
+    ring = card.gaussian_process.gps[0]
+    row['online_slots_filled'] = ring._ptr - ring._n0
+    if row['online_slots_filled'] != row['steps'] - 1:
+        raise RuntimeError(f'gp_mpc online: {row["online_slots_filled"]} slots filled in '
+                           f'{row["steps"]} steps')
+    rows['online'] = row
+    seconds['online'] = time.perf_counter() - t0
+    emit('gp_mpc', part='online learning, card against CPU', **row)
+    rows['batch'] = part('batch', _gp_batch, dev, smi)
+    emit('gp_mpc', part='select_action_batch', **rows['batch'])
+    rows['scenarios'] = part('scenarios', _gp_scenarios, dev, smi)
+    emit('gp_mpc', part='select_action_scenarios', **rows['scenarios'])
+    launches = _launches()
+    emit('gp_mpc', launches=launches, seconds_by_part=seconds)
+    for name in ('cartpole_advance', 'quad2d_advance'):
+        if launches[name] <= 0:
+            raise RuntimeError(f'the gp_mpc path never launched {name}')
+    emit('gp_mpc', part='done', seconds=time.perf_counter() - t_phase, card=smi)
+    return launches, rows
+
+
 class _Captured(Exception):
     """Raised by a filter's patched ``_solve`` once it has kept its inputs."""
 
+
+# Config 5's certified loop runs the first half of its 250-step episode, for
+# the script's time: every certification of the committed P is infeasible
+# and takes the ladder's last rung, at every step alike.
+CONFIG5_CERTIFIED_STEPS = 125
 
 # Phase safety's wall seconds by step, summed over the phase's parts.
 _SAFETY_SECONDS = {}
@@ -1952,25 +2395,24 @@ def _cbf_violation(sf, states, us):
                       barrier / (slack + sf.feas_tol * np.maximum(1.0, np.abs(bt).max(-1))))
 
 
-def _perturbed(state):
+def _perturbed(state, n=SAFETY_PERTURBED):
     rng = np.random.default_rng(1)
     return np.stack([state * (1 + SAFETY_PERTURB * rng.standard_normal(state.shape))
-                     for _ in range(SAFETY_PERTURBED)]).astype(np.float32)
+                     for _ in range(n)]).astype(np.float32)
 
 
-def _agree(card_u, ref, variants):
+def _agree(card_u, ref, variants, atol=SAFETY_ATOL):
     """tests/test_torch_safety_filters.py's rule: the card's answer is the
-    CPU's ``ref`` within SAFETY_ATOL, or, where the CPU's own answer moves by
-    more than SAFETY_ATOL among ``variants`` (its answers to the same problem
+    CPU's ``ref`` within ``atol``, or, where the CPU's own answer moves by
+    more than ``atol`` among ``variants`` (its answers to the same problem
     alone and to the state changed by SAFETY_PERTURB), one of those within
-    SAFETY_ATOL. Returns the verdict, the CPU's spread and the card's
-    distance to the nearest of the CPU's answers."""
+    ``atol``. Returns the verdict, the CPU's spread and the card's distance
+    to the nearest of the CPU's answers."""
     card_u, ref = (np.atleast_1d(np.asarray(a, np.float64)) for a in (card_u, ref))
     variants = [np.atleast_1d(np.asarray(a, np.float64)) for a in variants]
     spread = max(np.abs(a - ref).max() for a in variants)
     nearest = min(np.abs(card_u - a).max() for a in [ref, *variants])
-    ok = np.abs(card_u - ref).max() <= SAFETY_ATOL or (spread > SAFETY_ATOL
-                                                       and nearest <= SAFETY_ATOL)
+    ok = np.abs(card_u - ref).max() <= atol or (spread > atol and nearest <= atol)
     return dict(ok=bool(ok), cpu_spread=float(spread), nearest_cpu_answer=float(nearest))
 
 
@@ -2025,21 +2467,24 @@ def _replay_states(env_id, task_cfg, dev, data):
     return float(np.abs(np.stack(states) - data['state'][0]).max())
 
 
-def _evaluate(env_func, ctrl, sf=None, log=None):
-    """One episode through ``BaseExperiment.run_evaluation``; with ``log``,
-    the filter's certifications recorded. Returns the data, the metrics,
-    the wall seconds and the launches of each kernel."""
+def _evaluate(env_func, ctrl, sf=None, log=None, n_steps=None):
+    """One episode (or its first ``n_steps``, which must be fewer than the
+    episode's: run_evaluation counts steps from the last reset) through
+    ``BaseExperiment.run_evaluation``; with ``log``, the filter's
+    certifications recorded. Returns the data, the metrics, the wall seconds
+    and the launches of each kernel."""
     from safe_control_gym_tpu_torch.experiments.base_experiment import BaseExperiment
     if log is not None:
         _recording_filter(sf, log)
     exp = BaseExperiment(env=env_func(), ctrl=ctrl, safety_filter=sf)
-    before = {fn.__name__: fn.launches for fn in _counters()}
+    before = _launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    data, metrics = exp.run_evaluation(n_episodes=1, verbose=False)
+    data, metrics = exp.run_evaluation(n_episodes=None if n_steps else 1, n_steps=n_steps,
+                                       verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+    moved = _launches(before)
     exp.close()
     if log is not None:
         del sf.certify_action
@@ -2130,7 +2575,8 @@ def _config5(dev, smi):
         rows = {'uncertified': _run_row(*_evaluate(env_func, ctrl))}
         ctrl.reset()
         log = []
-        data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log)
+        data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log,
+                                               n_steps=CONFIG5_CERTIFIED_STEPS)
     row = _run_row(data, metrics, wall, moved, log, card.horizon)
     row['qp_admm_iterations_last_step'] = torch.stack(card.qp_iterations).cpu().numpy().ravel().tolist()
     _checked_loop(row, card, cpu, log, env_id, task, dev, data, env_func, ctrl)
@@ -2196,17 +2642,17 @@ def _rpi_checks(card, cpu_logdets):
                         <= max(RPI_LOGDET_RTOL * abs(cpu_logdets[0]), spread)))
 
 
-def _cpu_rpi_logdets(A_cl, w, tau):
-    """log det of the CPU's RPI set on the residuals w and on two copies
-    changed by RPI_PERTURB relative (numpy seed 1); run in a worker process."""
+def _cpu_rpi_logdet(A_cl, w, tau, k):
+    """log det of the CPU's RPI set on the residuals w (k = 0) or on the
+    k-th copy changed by RPI_PERTURB relative (numpy seed 1); run in a worker
+    process, one a set."""
     from safe_control_gym_tpu_torch.safety_filters.mpsc.mpsc_utils import compute_RPI_set
     torch.set_num_threads(1)
     rng = np.random.default_rng(1)
-    out = []
-    for k in range(3):
-        wk = w if k == 0 else w * (1 + RPI_PERTURB * rng.standard_normal(w.shape))
-        out.append(float(np.linalg.slogdet(compute_RPI_set(A_cl, wk, tau, device='cpu'))[1]))
-    return out
+    for _ in range(k):
+        wk = w * (1 + RPI_PERTURB * rng.standard_normal(w.shape))
+    return float(np.linalg.slogdet(compute_RPI_set(A_cl, w if k == 0 else wk, tau,
+                                                   device='cpu'))[1])
 
 
 def _cartpole_learn(dev, smi, pool):
@@ -2217,14 +2663,14 @@ def _cartpole_learn(dev, smi, pool):
     with _timed('set-up'):
         card = make('linear_mpsc', functools.partial(make, 'cartpole', device=dev,
                                                      **CERT_DEMO_TASK), **CERT_DEMO_SF)
-    before = {fn.__name__: fn.launches for fn in _counters()}
+    before = _launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _timed('learn'):
         card.learn()
         torch.cuda.synchronize()
     learn_s = time.perf_counter() - t0
-    learn_launches = {fn.__name__: fn.launches - before[fn.__name__] for fn in _counters()}
+    learn_launches = _launches(before)
     learn = dict(seconds=learn_s, split=card.learn_seconds, n_samples=card.n_samples,
                  launches=learn_launches, P=np.asarray(card.P).tolist())
     emit('safety', part='linear MPSC learn() on the card', source='examples/mpsc/'
@@ -2233,13 +2679,14 @@ def _cartpole_learn(dev, smi, pool):
     if learn_launches['cartpole_advance'] != card.n_samples:
         raise RuntimeError(f'safety learn(): {learn_launches}')
     A_cl = card.discrete_dfdx + card.discrete_dfdu @ card.lqr_gain
-    return card, learn, pool.submit(_cpu_rpi_logdets, A_cl, card.residuals, card.tau)
+    return card, learn, [pool.submit(_cpu_rpi_logdet, A_cl, card.residuals, card.tau, k)
+                         for k in range(3)]
 
 
 def _cartpole_rpi(card, learn, cpu_rpi, smi):
     """The learned RPI set against the CPU's (``cpu_rpi``'s log dets)."""
     with _timed('waiting for the cpu rpi sets'):
-        logdets = cpu_rpi.result()
+        logdets = [f.result() for f in cpu_rpi]
     rpi = _rpi_checks(card, logdets)
     emit('safety', part='the learned RPI set: its blocks (float64) and the CPU\'s log det',
          card=smi, **rpi)
@@ -2396,8 +2843,7 @@ def safety(dev, smi):
     rows = {'checks': _bit_checks(dev, 'safety', [('cartpole', 1, 1, 1.0 / 50),
                                                   ('cartpole', 1, 50, 1.0 / 750),
                                                   ('quadrotor', 1, 20, 1.0 / 1000)])}
-    for fn in _counters():
-        fn.launches = 0
+    _zero_launches()
     seconds = {}
 
     def part(name, fn, *args):
@@ -2407,7 +2853,7 @@ def safety(dev, smi):
         return out
     # learn() first: the CPU's RPI sets on its residuals run in a worker
     # process while the card goes on with the other parts.
-    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context('spawn'))
+    pool = ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing.get_context('spawn'))
     try:
         card, learn, cpu_rpi = part('cartpole_mpsc', _cartpole_learn, dev, smi, pool)
         rows['config5'] = part('config5', _config5, dev, smi)
@@ -2417,7 +2863,7 @@ def safety(dev, smi):
                                               cpu_rpi, smi)
     finally:
         pool.shutdown()
-    launches = {fn.__name__: fn.launches for fn in _counters()}
+    launches = _launches()
     emit('safety', launches=launches, seconds_by_part=seconds,
          seconds_by_step=dict(_SAFETY_SECONDS))
     for name in ('cartpole_advance', 'quad2d_advance'):
@@ -2457,7 +2903,8 @@ def main():
     if only is not None:
         # Some phases alone (a development run): their lines, and no result.
         for phase in only.split(','):
-            timed(phase, {'control': control, 'mpc': mpc, 'safety': safety}[phase], dev, smi)
+            timed(phase, {'control': control, 'mpc': mpc, 'gp_mpc': gp_mpc,
+                          'safety': safety}[phase], dev, smi)
         emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
              card=smi, phases=only)
         return
@@ -2472,6 +2919,7 @@ def main():
     train = timed('ppo_train', ppo_train, dev, smi)
     ctl_launches, ctl_rows = timed('control', control, dev, smi)
     mpc_launches, mpc_rows = timed('mpc', mpc, dev, smi)
+    gp_launches, gp_rows = timed('gp_mpc', gp_mpc, dev, smi)
     sf_launches, sf_rows = timed('safety', safety, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
@@ -2518,6 +2966,17 @@ def main():
                           'steps, 20 substeps, horizon 20)'),
             'quadrotor_3D': 'not on the MPC path'}[system]
         row['grad_max_abs_err'] = mpc_rows['gradient'][PHYSICS[system]['id']]['max_abs_err']
+        row['gp_mpc_launches'] = gp_launches[PHYSICS[system]['name']]
+        gc, gq = gp_rows['cartpole'], gp_rows['quadrotor_2D']
+        row['gp_mpc_shape'] = {
+            'cartpole': (f'B=1, 50 substeps: gp_mpc_cartpole_stab learn() '
+                         f'({gc["learn_samples"]} samples) and loop ({gc["steps"]} steps), online '
+                         f'loop ({gp_rows["online"]["steps"]} steps), batched_gp_mpc_demo learn() '
+                         f'({gp_rows["batch"]["learn_samples"]} samples), scenario loop '
+                         f'({gp_rows["scenarios"]["steps"]} steps)'),
+            'quadrotor': (f'B=1, 8 substeps: learn() ({gq["learn_samples"]} samples) and loop '
+                          f'({gq["steps"]} steps)'),
+            'quadrotor_3D': 'not on the GP-MPC path'}[system]
         row['safety_launches'] = sf_launches[PHYSICS[system]['name']]
         c5, cp, cbf = sf_rows['config5'], sf_rows['cartpole_mpsc'], sf_rows['cbf']
         row['safety_shape'] = {

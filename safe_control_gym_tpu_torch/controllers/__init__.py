@@ -1,5 +1,5 @@
 """Controllers of the port, registered at import time: LQR, iLQR and PID;
-MPC, linear MPC and MPC_ACADOS; PPO (with training), SAC and DDPG (at
+MPC, linear MPC, MPC_ACADOS and GP-MPC; PPO (with training), SAC and DDPG (at
 inference; their training and the other controllers come with later
 slices)."""
 
@@ -20,6 +20,9 @@ register(idx='mpc',
 register(idx='linear_mpc',
          entry_point='safe_control_gym_tpu_torch.controllers.mpc.linear_mpc:LinearMPC',
          config_entry_point='safe_control_gym_tpu_torch.controllers.mpc:linear_mpc.json')
+register(idx='gp_mpc',
+         entry_point='safe_control_gym_tpu_torch.controllers.mpc.gp_mpc:GPMPC',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.mpc:gp_mpc.json')
 register(idx='mpc_acados',
          entry_point='safe_control_gym_tpu_torch.controllers.mpc.mpc_acados:MPC_ACADOS',
          config_entry_point='safe_control_gym_tpu_torch.controllers.mpc:mpc_acados.json')

@@ -17,12 +17,13 @@ Port of ``safe_control_gym_tpu/controllers/mpc/mpc.py`` (``MPC``):
   cold retry if the warm-started solve is infeasible, then the reference's
   fallback ladder; one read from the device a step (X, U, the residual and
   the QP's warm start in one copy), besides the QP's stage exits;
-* ``select_action_batch``: B cold-started problems as one batched solve.
+* ``select_action_batch``: B cold-started problems as one batched solve;
+* ``select_action_scenarios``: one problem under B sets of parameters of the
+  dynamics (``dynamics_func_param``), each problem of the batch linearized
+  under its own set.
 
 Every solve runs on the env's device (``partial(make, env_id, device=...)``).
-The JAX package's ``shard_over`` (ROADMAP item 14) and
-``select_action_scenarios`` (which only GP-MPC's parametric dynamics serve)
-raise until their slices.
+The JAX package's ``shard_over`` raises until ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
+from torch.utils._pytree import tree_leaves, tree_map
 
 from safe_control_gym_tpu_torch.controllers.base_controller import BaseController
 from safe_control_gym_tpu_torch.controllers.mpc.mpc_utils import (
@@ -246,19 +248,28 @@ class MPC(BaseController):
         return lambda x, u: fd_param(x, u, dp)
 
     def _build_and_solve(self, x_init, goal, X, U, z0, y0, tight_s, tight_u, dp,
-                         polish=True):
+                         polish=True, dp_batched=False):
         """One SQP iteration of B problems: linearize about (X, U), assemble
         the QP and solve it. ``x_init`` (B, nx), ``goal`` (B, T+1, nx), ``X``
         (B, T+1, nx), ``U`` (B, T, nu), the QP warm start ``z0`` (B, n_z) and
-        ``y0`` (B, m), tightenings (B, T+1, ms) and (B, T, mu)."""
+        ``y0`` (B, m), tightenings (B, T+1, ms) and (B, T, mu). With
+        ``dp_batched`` every leaf of ``dp`` has a leading (B,) axis, problem b
+        taking the parameters at b."""
         nx, nu, T = self.model.nx, self.model.nu, self.T
         ms, mu, n_slack = self._ms, self._mu, self._n_slack
         n_z, m_rows = self._n_z, self._m_rows
         B = X.shape[0]
-        fd = self._dynamics(dp)
         Xs, Us = X[:, :-1].reshape(-1, nx), U.reshape(-1, nu)
-        (A_k, B_k), f_k = vmap(jacfwd(lambda x, u: (fd(x, u),) * 2, argnums=(0, 1),
-                                      has_aux=True))(Xs, Us)
+        if dp_batched:
+            # Each horizon point takes its problem's parameters.
+            dp_points = tree_map(lambda leaf: leaf.repeat_interleave(T, dim=0), dp)
+            (A_k, B_k), f_k = vmap(jacfwd(
+                lambda x, u, p: (self.dynamics_func_param(x, u, p),) * 2, argnums=(0, 1),
+                has_aux=True))(Xs, Us, dp_points)
+        else:
+            fd = self._dynamics(dp)
+            (A_k, B_k), f_k = vmap(jacfwd(lambda x, u: (fd(x, u),) * 2, argnums=(0, 1),
+                                          has_aux=True))(Xs, Us)
         c_k = (f_k - (A_k @ Xs[..., None])[..., 0] - (B_k @ Us[..., None])[..., 0])
         A_mat = self._A_base.expand(B, m_rows, n_z).clone()
         flat = A_mat.view(B, -1)
@@ -297,7 +308,7 @@ class MPC(BaseController):
                 sol.x, sol.y, sol.prim_res)
 
     @full_matmul_precision
-    def _solve(self, x_init, goal, X, U, z, y, tight_s, tight_u, dp=None):
+    def _solve(self, x_init, goal, X, U, z, y, tight_s, tight_u, dp=None, dp_batched=False):
         """``sqp_iters`` SQP iterations of B problems: the earlier ones
         unpolished (they are re-linearized anyway), the last polished.
         Returns X, U, the QP's x and y (the next warm start) and its primal
@@ -306,9 +317,9 @@ class MPC(BaseController):
         self.qp_iterations = []
         for _ in range(self.sqp_iters - 1):
             X, U, z, y, _ = self._build_and_solve(x_init, goal, X, U, z, y, tight_s, tight_u,
-                                                  dp, polish=False)
+                                                  dp, polish=False, dp_batched=dp_batched)
         return self._build_and_solve(x_init, goal, X, U, z, y, tight_s, tight_u, dp,
-                                     polish=True)
+                                     polish=True, dp_batched=dp_batched)
 
     def _cold_start(self, x0):
         """The cold guess of B problems from their (B, nx) initial states."""
@@ -341,9 +352,28 @@ class MPC(BaseController):
                                   'ROADMAP item 14 (torch.distributed)')
 
     def select_action_scenarios(self, obs, dynamics_params_batch, step: int = 0):
-        raise NotImplementedError('MPC.select_action_scenarios serves the parametric '
-                                  'dynamics of GP-MPC, which comes with its slice '
-                                  '(ROADMAP item 11)')
+        """The same cold-started receding-horizon problem at ``obs`` under B
+        sets of parameters of the dynamics, as one batched solve: the
+        scenario sweep of domain-randomized or minimax robust MPC. It needs
+        the parametric hook ``dynamics_func_param(x, u, params)``;
+        ``dynamics_params_batch`` is a pytree of tensors (dicts, lists,
+        tuples) whose leaves have a leading scenario axis B. Returns
+        ``(actions (B, nu), feasible (B,) bool)``, numpy: one candidate action
+        a scenario (examples/mpc/scenario_mpc_demo.py picks among them);
+        ``batch_horizons`` keeps the horizons on the device."""
+        if getattr(self, 'dynamics_func_param', None) is None:
+            raise ValueError('select_action_scenarios requires dynamics_func_param')
+        nx = self.model.nx
+        obs_np = np.asarray(obs, np.float32)[:nx]
+        goal = self.get_references(step)
+        dp = tree_map(lambda leaf: torch.as_tensor(leaf, dtype=torch.float32,
+                                                   device=self.device), dynamics_params_batch)
+        B = tree_leaves(dp)[0].shape[0]
+        x0 = self._f32(obs_np[None]).expand(B, nx)
+        goal_t = self._f32(goal.T).expand(B, self.T + 1, nx)
+        return self._batch_answers(
+            self._solve(x0, goal_t, *self._cold_start(x0), *self._tightening(B), dp,
+                        dp_batched=True), obs_np[None], goal)
 
     def select_action_batch(self, obs_batch, step: int = 0):
         """B independent cold-started receding-horizon solves as one batched
@@ -356,13 +386,24 @@ class MPC(BaseController):
         goal = self.get_references(step)
         x0 = self._f32(obs_batch)
         goal_t = self._f32(goal.T).expand(B, self.T + 1, nx)
-        X, U, z, y, res = self._solve(x0, goal_t, *self._cold_start(x0), *self._tightening(B),
-                                      getattr(self, 'dynamics_params', None))
+        return self._batch_answers(
+            self._solve(x0, goal_t, *self._cold_start(x0), *self._tightening(B),
+                        getattr(self, 'dynamics_params', None)), obs_batch, goal)
+
+    def _batch_answers(self, solution, obs_batch, goal, extra=None):
+        """The first inputs and feasibility flags of a batched solve (and
+        the (B,) tensor ``extra``'s values), read back in one copy."""
+        X, U, _, _, res = solution
         self.batch_horizons = (X, U)
-        host = torch.cat([U[:, 0], res[:, None]], dim=1).cpu().numpy()
-        u0, res_np = host[:, :-1], host[:, -1]
+        cols = [U[:, 0], res[:, None]] + ([extra[:, None].to(res.dtype)] if extra is not None
+                                          else [])
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        nu = U.shape[-1]
+        u0, res_np = host[:, :nu], host[:, nu]
         feasible = np.isfinite(res_np) & (res_np < self.feas_tol * self._feas_scale(
             obs_batch, goal))
+        if extra is not None:
+            return u0, feasible, host[:, nu + 1]
         return u0, feasible
 
     # ------------------------------------------------------------------

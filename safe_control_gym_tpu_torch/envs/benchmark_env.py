@@ -568,6 +568,24 @@ class BenchmarkEnv:
         return first(out.obs), float(out.reward[0]), bool(out.done[0]), \
             self._build_info(out)
 
+    def set_state(self, state):
+        """Overwrite the physical state mid-episode (GP-MPC's data collection
+        starts transitions from chosen states). Returns the observation of the
+        new state as ``step`` would give it at the current counter (noise drawn
+        from the env's generator where an observation disturbance is set)."""
+        self._check_initial_reset()
+        x = torch.as_tensor(np.asarray(state, np.float32).reshape(1, self.state_dim),
+                            device=self.device)
+        est = self._est = self._est.replace(state=x)
+        self.state = x[0].cpu().numpy()
+        obs = self._obs_transform(x)
+        dist_obs = self.disturbances.get('observation')
+        if dist_obs:
+            drawn = dist_obs.draw(self.generator, 1) if dist_obs.noise_size > 0 else None
+            t = est.ctrl_step.to(torch.float32) * self.CTRL_TIMESTEP
+            obs = dist_obs.apply_drawn(obs, est.dist_obs, est.ctrl_step, t, drawn)
+        return self._extend_obs(obs, est.ctrl_step + 1)[0].cpu().numpy()
+
     def _build_info(self, out: StepOut) -> Dict[str, Any]:
         info: Dict[str, Any] = {}
         if self.TASK == Task.STABILIZATION and self.COST == Cost.QUADRATIC:

@@ -29,7 +29,7 @@ SYSTEMS = {'cartpole': 'cartpole', 'quadrotor_2D': 'quadrotor',
 _DIR = os.path.dirname(os.path.abspath(__file__))
 # The example folder (and JSON file) of each algorithm.
 EXAMPLE = {'lqr': 'lqr', 'ilqr': 'lqr', 'pid': 'pid', 'mpc': 'mpc', 'linear_mpc': 'mpc',
-           'mpc_acados': 'mpc'}
+           'mpc_acados': 'mpc', 'gp_mpc': 'mpc'}
 
 
 def load(example: str):

@@ -53,6 +53,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import safe_control_gym_tpu_torch.controllers.mpc.mpc\n'
             'import safe_control_gym_tpu_torch.controllers.mpc.linear_mpc\n'
             'import safe_control_gym_tpu_torch.controllers.mpc.mpc_acados\n'
+            'import safe_control_gym_tpu_torch.controllers.mpc.gp_utils\n'
+            'import safe_control_gym_tpu_torch.controllers.mpc.gp_mpc\n'
             'from functools import partial\n'
             'from safe_control_gym_tpu_torch.utils.registration import make\n'
             'from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint\n'
@@ -66,6 +68,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             'make("pid", partial(make, "quadrotor", device="cpu"))\n'
             'mpc = make("linear_mpc", partial(make, "cartpole", device="cpu"), horizon=3)\n'
             'mpc.reset(); mpc.select_action_batch(mpc.env._nominal_init_state()[None])\n'
+            'gp = make("gp_mpc", partial(make, "cartpole", device="cpu"), horizon=3,'
+            ' num_samples=4, optimization_iterations=2)\n'
+            'gp.reset(); gp.learn(); gp.select_action(gp.env._nominal_init_state())\n'
             'import safe_control_gym_tpu_torch.experiments.base_experiment\n'
             'import safe_control_gym_tpu_torch.safety_filters.cbf.cbf_nn\n'
             'box = [{"constraint_form": "default_constraint", "constrained_variable": v}'
@@ -111,8 +116,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         benchmark_suite.measure_closed_loop_kernel('cartpole', batch=8, n_steps=8)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         make('sac', functools.partial(make, 'cartpole'))
-    for algo in ('lqr', 'ilqr', 'pid', 'mpc', 'linear_mpc', 'mpc_acados', 'linear_mpsc',
-                 'cbf', 'cbf_nn'):
+    for algo in ('lqr', 'ilqr', 'pid', 'mpc', 'linear_mpc', 'mpc_acados', 'gp_mpc',
+                 'linear_mpsc', 'cbf', 'cbf_nn'):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             make(algo, functools.partial(make, 'quadrotor' if algo == 'pid' else 'cartpole'))
     ctrl = make('ppo', functools.partial(make, 'cartpole', device='cpu'))

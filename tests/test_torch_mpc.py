@@ -27,6 +27,9 @@ Tolerances, and why:
 * ``select_action_batch`` on 8 states (examples/mpc/batched_mpc_demo.py's
   cartpole, uniform +-0.3 from numpy seed 0): actions to 1e-4, feasibility
   flags equal.
+* ``select_action_scenarios``: each scenario's candidate against its problem
+  solved alone with the parameters shared, to 1e-4 (against JAX's:
+  tests/test_torch_gp_mpc.py).
 """
 
 import functools
@@ -42,6 +45,8 @@ from safe_control_gym_tpu.controllers.mpc import mpc_utils as jutils
 from safe_control_gym_tpu.utils.registration import get_config as jget
 from safe_control_gym_tpu.utils.registration import make as jmake
 from safe_control_gym_tpu_torch.controllers.mpc import mpc_utils as tutils
+from safe_control_gym_tpu_torch.controllers.mpc.mpc import MPC as TMPC
+from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams, cartpole_dynamics, rk4_step
 from safe_control_gym_tpu_torch.experiments.control_configs import control_config, load
 from safe_control_gym_tpu_torch.utils.registration import get_config as tget
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
@@ -111,12 +116,12 @@ def _loop(algo):
 # ---------------------------------------------------------------------------
 # Registry and configs
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize('algo', ['mpc', 'linear_mpc', 'mpc_acados'])
+@pytest.mark.parametrize('algo', ['mpc', 'linear_mpc', 'mpc_acados', 'gp_mpc'])
 def test_registry_defaults_equal_jax(algo):
     assert tget(algo) == jget(algo)
     ctrl = tmake(algo, functools.partial(tmake, 'cartpole', device='cpu'), **tget(algo), **OUT)
     assert type(ctrl).__name__ == {'mpc': 'MPC', 'linear_mpc': 'LinearMPC',
-                                   'mpc_acados': 'MPC_ACADOS'}[algo]
+                                   'mpc_acados': 'MPC_ACADOS', 'gp_mpc': 'GPMPC'}[algo]
     assert ctrl.device.type == 'cpu'
     ctrl.close()
 
@@ -205,8 +210,41 @@ def test_unported_paths_raise():
     t = tmake('mpc', functools.partial(tmake, 'cartpole', device='cpu'), horizon=3, **OUT)
     with pytest.raises(NotImplementedError, match='item 14'):
         t.shard_over(None)
-    with pytest.raises(NotImplementedError, match='GP-MPC'):
-        t.select_action_scenarios(np.zeros(4), None)
+
+
+class _ScenarioMPC(TMPC):
+    """MPC whose RK4 dynamics take the cartpole's parameters as an argument
+    (examples/mpc/scenario_mpc_demo.py's controller)."""
+
+    def dynamics_func_param(self, x, u, p):
+        return rk4_step(cartpole_dynamics, x, u, self.dt, CartPoleParams(**p))
+
+
+def test_select_action_scenarios_solves_each_scenario():
+    """Each scenario's candidate is its problem solved alone with the
+    parameters shared (the per-problem path against the shared one), to
+    ATOL, flags equal; an MPC without the hook refuses. (JAX's scenarios:
+    tests/test_torch_gp_mpc.py.)"""
+    ctrl = _ScenarioMPC(functools.partial(tmake, 'cartpole', device='cpu', **DEMO_TASK),
+                        q_mpc=[1], r_mpc=[0.1], horizon=5, sqp_iters=2, **OUT)
+    ctrl.reset()
+    n = 3
+    scen = dict(pole_length=np.array([0.4, 0.5, 0.9], np.float32),
+                pole_mass=np.full(n, 0.1, np.float32), cart_mass=np.full(n, 1.0, np.float32),
+                gravity=np.full(n, 9.8, np.float32))
+    x = np.array([0.1, 0.0, 0.2, 0.0], np.float32)
+    u, feasible = ctrl.select_action_scenarios(x, scen)
+    assert u.shape == (n, 1) and feasible.all()
+    for b in range(n):
+        ctrl.dynamics_params = {k: torch.tensor(v[b]) for k, v in scen.items()}
+        u_b, f_b = ctrl.select_action_batch(x[None])
+        np.testing.assert_allclose(u[b], u_b[0], rtol=0, atol=ATOL)
+        assert f_b[0] == feasible[b]
+    assert np.abs(u[0] - u[2]).max() > 10 * ATOL     # the scenarios differ
+    plain = tmake('mpc', functools.partial(tmake, 'cartpole', device='cpu'), horizon=3, **OUT)
+    plain.reset()
+    with pytest.raises(ValueError, match='dynamics_func_param'):
+        plain.select_action_scenarios(x, scen)
 
 
 # ---------------------------------------------------------------------------
