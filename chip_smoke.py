@@ -2,12 +2,14 @@
 kernels, then drive the batched cartpole and quadrotor rollouts, the
 closed-loop evaluation of the committed RL models, PPO training, the
 model-based controllers (LQR, iLQR, PID), the MPC family (MPC, linear MPC,
-MPC_ACADOS), GP-MPC with its batch and the scenario solve, and the safety
-filters (linear MPSC, CBF, CBF-NN) through the
-port's entry points.
+MPC_ACADOS), GP-MPC with its batch and the scenario solve, the safety
+filters (linear MPSC, CBF, CBF-NN), SAC and DDPG training, and RARL, RAP
+and SafeExplorerPPO with the env's adversary channel through the port's
+entry points.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety alone
+    python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety,
+                                            # off_policy, robust alone
                                             # (comma-separated), no result line
 
 Phases, one JSON line each:
@@ -112,7 +114,7 @@ Phases, one JSON line each:
                device='cuda', ...)) -> reset() -> run() on the examples'
                configs at horizon 20: linear MPC on linear_mpc_quadrotor_2D_track
                (300 steps, K2 at 20 substeps), MPC on mpc_cartpole_stab (3 SQP)
-               and MPC_ACADOS with RTI (the first 45 of 90 steps each, K1 at 50
+               and MPC_ACADOS with RTI (the first 20 of 90 steps each, K1 at 50
                substeps), K1's
                or K2's launches exactly the steps, each step gated against the
                port's CPU controller fed the card's observation and warm start
@@ -132,8 +134,9 @@ Phases, one JSON line each:
                to 0 before and read after, make('gp_mpc', partial(make, env,
                device='cuda', ...)) -> reset() -> learn() -> run():
                gp_mpc_cartpole_stab (horizon 15, 80 samples, 150 Adam steps;
-               the first 45 of its 90 steps) and tests/test_gp_mpc.py's 2D
-               quad (horizon 10, 60 samples, 120 Adam steps, its 60 steps);
+               the first 20 of its 90 steps) and tests/test_gp_mpc.py's 2D
+               quad (horizon 10, 60 samples, 120 Adam steps, the first 40 of
+               its 60 steps);
                each loop's GPs against the port's CPU GPs trained on the
                card's data, the fused tightening against the host reference
                along the card's plans, each step against the CPU controller
@@ -159,7 +162,7 @@ Phases, one JSON line each:
                BASELINE.json's fifth config (SAC on the 2D quad, the committed
                model, uncertified, then certified by linear MPSC loaded from
                the committed P; the 250-step episode uncertified, its first
-               125 steps certified, K2's launches exactly the steps); learn()
+               50 steps certified, K2's launches exactly the steps); learn()
                on examples/mpsc/batched_certification_demo.py's cartpole
                (n_samples 120: collection, descent and search timed;
                its P's blocks certified in float64 and its log det against
@@ -177,13 +180,49 @@ Phases, one JSON line each:
                phase's constants); config 5's ms a certification with the
                QP's stages launched and captured, in turns, and a
                torch.profiler window of two of its steps;
- 15. kernels   one entry per kernel with its launches, error, times and bound
+ 15. off_policy  SAC and DDPG training through make('sac' | 'ddpg', partial(
+               make, env, device='cuda', ...), training=True), every launch
+               counter set to 0 before each part and read after: SAC on
+               sac_cartpole (N=8, train_interval 100, batch 256, hidden 256;
+               max_env_steps cut to OFF_POLICY_STEPS, its warm-up of 1000
+               kept), then run(n_episodes=10), gated on finite losses,
+               total_steps, K1's launches (every collect step and every eval
+               step) and an eval return above SAC_EVAL_BAR; a torch.profiler
+               window of one collect and one train phase (kernels a step and
+               an update, the device's busy share); SAC on the committed 2D
+               and 3D configs for OFF_POLICY_QUAD_ITERATIONS iterations past
+               the warm-up, gated on K2's and K3's launches; DDPG with
+               tests/test_rl_offpolicy.py's settings (not saturated, finite
+               returns); one SAC and one DDPG update card against a CPU copy
+               on the same batch and normals (every array of the agent within
+               OFF_POLICY_UPDATE_ATOL); evaluate_fused at B of the trained SAC
+               and DDPG actors (K4's policy mode: path and launches asserted),
+               and K4 on their launch inputs against its plain version (1e-4);
+ 16. robust    RARL and RAP (2 adversaries) on tests/test_rarl_behavior.py's
+               cartpole (dynamics adversary, scale 2.0, 50 substeps) for
+               ROBUST_STEPS env steps each, gated on finite losses, K1's
+               launches, the first ROBUST_REPLAY collect steps replayed
+               through a pallas_physics=False card env with the same actions
+               and adversary forces (states equal, 0.0) and a nonzero force;
+               one RARL rollout on the 2D quad (K2's world force, replayed
+               likewise); SafeExplorerPPO: the committed cartpole model
+               through BaseExperiment (average length at least
+               SE_EVAL_LENGTH, no violation, K1 a step; the file's PPO
+               parameters are NaN, in the JAX package too, so its actions
+               are NaN and the bar holds vacuously), the committed 2D quad
+               model likewise (finite actions and return, K2 a step), then
+               the committed pretrain config cut to SE_EPOCHS constraint
+               epochs and one PPO iteration (finite losses, K1's launches);
+ 17. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
                control, mpc_launches, mpc_shape and grad_max_abs_err, from
                phase mpc, gp_mpc_launches and gp_mpc_shape, from phase
-               gp_mpc, and safety_launches and safety_shape, from phase
-               safety).
+               gp_mpc, safety_launches and safety_shape, from phase safety,
+               off_policy_launches and off_policy_shape, from phase
+               off_policy, and robust_launches and robust_shape, from phase
+               robust; K4's policy row also with off_policy_launches, the
+               trained actors' evaluate_fused launches).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
@@ -221,15 +260,15 @@ N_SUB, DT = 20, 1e-3
 # K4/K5 against the plain version, at lengths cut for the script's time; the
 # cartpole's hover replay runs past its 250-step episode, to the time-limit
 # reset (the other cases' episodes end by their bounds).
-T_CHECK = {'cartpole': 150, 'quadrotor': 75, 'quadrotor_3D': 75}
+T_CHECK = {'cartpole': 75, 'quadrotor': 40, 'quadrotor_3D': 40}
 T_CHECK_HOVER = {'cartpole': 300}
 # The policy mode's cases other than the committed models, likewise.
-T_POLICY_CHECK = {'cartpole': 150, 'quadrotor': 75, 'quadrotor_3D': 75}
+T_POLICY_CHECK = {'cartpole': 75, 'quadrotor': 40, 'quadrotor_3D': 40}
 T_PER_STEP = 512       # the per-step path of the main path
 T_ROLLOUT = 131072     # the whole-rollout path of the main path
 T_WELCH = 1024
 T_CLOSED = 500         # the committed models' closed-loop rows (two episodes)
-T_COMMITTED = 300      # the committed models against the plain version: past the
+T_COMMITTED = 260      # the committed models against the plain version: past the
                        # 250-step episode, so every env draws a fresh state
 T_WELCH_CLOSED = 1000
 PPO_QUAD_ITERATIONS = 1   # training iterations of the 2D and 3D configs
@@ -302,9 +341,9 @@ MPC_DEMO_TASK = dict(seed=0, cost='quadratic', ctrl_freq=15, pyb_freq=750,
                                 'stabilization_goal_tolerance': 0.01},
                      randomized_init=False)
 MPC_DEMO_ALGO = dict(q_mpc=[1], r_mpc=[0.1], horizon=20, sqp_iters=3)
-# The cartpole MPC and MPC_ACADOS loops run the first half of their 90-step
+# The cartpole MPC and MPC_ACADOS loops run the first 20 of their 90-step
 # episode, for the script's time.
-MPC_CARTPOLE_STEPS = 45
+MPC_CARTPOLE_STEPS = 20
 # The gradient case: K1-K3 backward through the kernel against autograd through
 # the plain twin on the same card inputs (relative to the gradient's largest
 # entry), and examples/differentiable_sim_demo.py's cost over GRAD_T actions,
@@ -345,7 +384,8 @@ GRAD_DEMO = dict(seed=0, ctrl_freq=15, pyb_freq=750, init_state={'init_theta': 0
 GP_ATOL = 1e-4
 GP_POINTS = 64
 GP_TIGHTEN_RTOL = 1e-5
-GP_CARTPOLE_STEPS = 45          # the first 45 of gp_mpc_cartpole_stab's 90 steps
+GP_CARTPOLE_STEPS = 20          # the first 20 of gp_mpc_cartpole_stab's 90 steps
+GP_QUAD_STEPS = 40              # the first 40 of the 2D quad's 60 steps
 GP_ONLINE_STEPS = 20
 B_GP = 4096
 GP_GATE_ROWS = 64
@@ -455,6 +495,45 @@ CERT_DEMO_SF = dict(horizon=10, q_lin=[1], r_lin=[1], integration_algo='rk4', n_
 RPI_EIG_TOL = 1e-6
 RPI_LOGDET_RTOL = 1e-3
 RPI_PERTURB = 1e-7
+# Phase off_policy: SAC on sac_cartpole (N=8, train_interval 100, batch 256,
+# hidden 256) cut from 100000 env steps to OFF_POLICY_STEPS with its warm-up
+# of 1000; its eval bar is tests/test_rl_offpolicy.py:38's (random actions
+# return about 20). SAC on the committed 2D and 3D configs for
+# OFF_POLICY_QUAD_ITERATIONS iterations past the warm-up; DDPG with
+# tests/test_rl_offpolicy.py:52-63's settings; one update of each at full
+# width card against CPU (OFF_POLICY_UPDATE_ATOL); the trained actors through
+# evaluate_fused at B (T_OFF_POLICY_EVAL steps) and K4's policy mode against
+# its plain version over T_OFF_POLICY_CHECK steps (1e-4, as phase k4_policy).
+OFF_POLICY_STEPS = 5000
+SAC_EVAL_BAR = 25.0
+OFF_POLICY_QUAD_ITERATIONS = 2
+DDPG_TEST = dict(max_env_steps=4000, warm_up_steps=1000, rollout_batch_size=8,
+                 train_interval=200, train_batch_size=64, max_buffer_size=20000,
+                 actor_lr=0.0003)
+OFF_POLICY_UPDATE_ATOL = 1e-4
+T_OFF_POLICY_EVAL = 300
+T_OFF_POLICY_CHECK = 40
+# Phase robust: tests/test_rarl_behavior.py's cartpole (dynamics adversary,
+# scale 2.0, 50 substeps) and its RARL settings at the default width (hidden
+# 64), ROBUST_STEPS env steps for RARL and for RAP (2 adversaries); the first
+# ROBUST_REPLAY collect steps replayed through a pallas_physics=False card env
+# (states equal, 0.0); one RARL rollout of ROBUST_QUAD_T steps on the 2D quad
+# (K2's force operand). SafeExplorerPPO: the committed cartpole model through
+# BaseExperiment at tests/test_safe_explorer_behavior.py:101-102's bar (its
+# PPO parameters are NaN, so the bar holds with NaN actions, as in JAX) and
+# the committed 2D quad model (finite actions), then
+# the committed pretrain config cut to SE_EPOCHS constraint epochs and one
+# PPO iteration.
+RARL_TASK = dict(seed=3, cost='rl_reward', normalized_rl_action_space=True, randomized_init=True,
+                 episode_len_sec=3, ctrl_freq=15, pyb_freq=750,
+                 adversary_disturbance='dynamics', adversary_disturbance_scale=2.0)
+RARL_ALGO = dict(rollout_batch_size=8, rollout_steps=64, agent_iterations=2,
+                 adversary_iterations=2, opt_epochs=5, mini_batch_size=256)
+ROBUST_STEPS = 8 * 64 * 4
+ROBUST_REPLAY = 64
+ROBUST_QUAD_T = 8
+SE_EVAL_LENGTH = 240
+SE_EPOCHS = 2
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -1287,8 +1366,10 @@ def _training_trace(ctrl):
     torch.cuda.synchronize()
     _, num_mb, _ = ctrl.agent.minibatch_plan(batch['obs'].shape[0])
     epochs, ctrl.agent.opt_epochs = ctrl.agent.opt_epochs, 1
-    r_wall, r_busy, r_kernels = _profiled(ctrl.rollout)
-    u_wall, u_busy, u_kernels = _profiled(lambda: ctrl.agent.update_tensors(batch, ctrl.gen))
+    # The card's activity alone: the host's events cost seconds to collect.
+    r_wall, r_busy, r_kernels = _profiled(ctrl.rollout, cpu_activity=False)
+    u_wall, u_busy, u_kernels = _profiled(
+        lambda: ctrl.agent.update_tensors(batch, ctrl.gen), cpu_activity=False)
     ctrl.agent.opt_epochs = epochs
     return dict(window=f'one rollout (T={ctrl.T}) and one epoch ({num_mb} minibatches), '
                        'each under torch.profiler',
@@ -2187,7 +2268,8 @@ def gp_mpc(dev, smi):
     _zero_launches()
     loops = [('cartpole', *control_config('gp_mpc', 'cartpole', 'stab'), 'cartpole_advance',
               GP_CARTPOLE_STEPS),
-             ('quadrotor_2D', 'quadrotor', GP_QUAD_TASK, GP_QUAD_ALGO, 'quad2d_advance', None)]
+             ('quadrotor_2D', 'quadrotor', GP_QUAD_TASK, GP_QUAD_ALGO, 'quad2d_advance',
+              GP_QUAD_STEPS)]
     card_cartpole = None
     for system, env_id, task_cfg, algo_cfg, kname, max_steps in loops:
         t0 = time.perf_counter()
@@ -2247,10 +2329,13 @@ class _Captured(Exception):
     """Raised by a filter's patched ``_solve`` once it has kept its inputs."""
 
 
-# Config 5's certified loop runs the first half of its 250-step episode, for
+# Config 5's certified loop runs the first 50 of its 250-step episode, for
 # the script's time: every certification of the committed P is infeasible
 # and takes the ladder's last rung, at every step alike.
-CONFIG5_CERTIFIED_STEPS = 125
+CONFIG5_CERTIFIED_STEPS = 50
+# The CBF and CBF-NN loops run the first 150 steps of their episode (225
+# steps before PR 14), for the script's time.
+CBF_STEPS = 150
 
 # Phase safety's wall seconds by step, summed over the phase's parts.
 _SAFETY_SECONDS = {}
@@ -2820,7 +2905,7 @@ def _cbf_family(dev, smi):
             ctrl = make('lqr', env_func, **algo_cfg)
         log = []
         with _timed('loops'):
-            data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log)
+            data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log, CBF_STEPS)
         row = _run_row(data, metrics, wall, moved, log)
         _checked_loop(row, card, cpu, log, env_id, task, dev, data)
         emit('safety', part=f'{name} on the cartpole, LQR certified',
@@ -2873,6 +2958,386 @@ def safety(dev, smi):
     return launches, rows
 
 
+def _off_policy_ctrl(algo, dev, out_dir, env_id, task_cfg, algo_cfg):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    return make(algo, functools.partial(make, env_id, device=dev, **task_cfg), training=True,
+                output_dir=os.path.join(out_dir, algo), seed=0, checkpoint_path='',
+                **algo_cfg)
+
+
+def _off_policy_train(label, ctrl, kname, smi):
+    """reset + learn of an off-policy learner on the card, every launch
+    counter set to 0 before and read after; the row, gated on finite losses,
+    total_steps and the kernel's launches (one a collect step)."""
+    _zero_launches()
+    wall = _train(ctrl)
+    launches = _launches()
+    steps = ctrl.total_steps // ctrl.N
+    per_iter = ctrl.N * ctrl.steps_per_iter
+    trained = ctrl.total_steps // per_iter - -(-int(ctrl.warm_up_steps) // per_iter)
+    last = ctrl.last_results
+    row = dict(envs=ctrl.N, steps_per_iter=ctrl.steps_per_iter,
+               train_interval=int(ctrl.train_interval),
+               train_batch_size=int(ctrl.train_batch_size), hidden=int(ctrl.hidden_dim),
+               warm_up_steps=int(ctrl.warm_up_steps), total_steps=ctrl.total_steps,
+               max_env_steps=int(ctrl.max_env_steps), wall_s=wall,
+               collect_s=ctrl.train_seconds['collect'], update_s=ctrl.train_seconds['update'],
+               updates=trained * int(ctrl.train_interval),
+               last_iteration={k: last[k] for k in ('mean_reward', 'policy_loss', 'critic_loss')},
+               launches=launches, card=smi)
+    emit('off_policy', part=label, **row)
+    if not all(np.isfinite(row['last_iteration'][k]) for k in ('policy_loss', 'critic_loss')):
+        raise RuntimeError(f'off_policy {label}: a loss is not finite: {last}')
+    if ctrl.total_steps < int(ctrl.max_env_steps):
+        raise RuntimeError(f'off_policy {label} stopped at {ctrl.total_steps} steps')
+    _expect_launches(f'off_policy {label}', launches, kname, steps)
+    return row
+
+
+def _update_pair(agent_cls, ctrl, kw):
+    """One update of ``ctrl``'s agent on the card and of a CPU copy, on one
+    batch from the card's ring and one set of normals; returns the largest
+    difference over every array of the two state dicts."""
+    from safe_control_gym_tpu_torch.controllers.off_policy_utils import replay_sample
+    from safe_control_gym_tpu_torch.math.optim import tree_leaves
+    batch = replay_sample(ctrl.buffer, ctrl.gen, int(ctrl.train_batch_size))
+    cpu = agent_cls(ctrl.env.observation_space, ctrl.env.action_space, device='cpu', **kw)
+    cpu.load_state_dict(ctrl.agent.state_dict())
+    g = torch.Generator().manual_seed(0)
+    act_dim = ctrl.env.action_space.shape[0]
+    noise = [torch.randn((int(ctrl.train_batch_size), act_dim), generator=g) for _ in range(2)]
+    card_losses = ctrl.agent.update(batch, noise=[n.to(ctrl.device) for n in noise])
+    cpu_losses = cpu.update({k: v.cpu() for k, v in batch.items()}, noise=noise)
+    errs = [float(np.abs(a - b).max()) for a, b in zip(tree_leaves(ctrl.agent.state_dict()),
+                                                         tree_leaves(cpu.state_dict()))]
+    return dict(max_abs_err=max(errs), arrays=len(errs), rows=int(ctrl.train_batch_size),
+                losses_card=card_losses.cpu().tolist(), losses_cpu=cpu_losses.tolist(),
+                atol=OFF_POLICY_UPDATE_ATOL)
+
+
+def _compare_rollouts(k, p):
+    """A kernel rollout's outputs against its plain version's: the state and
+    reward-sum errors, the envs whose counts differ, and whether they pass
+    the policy gate (1e-4; rewards 1e-4 + 1e-4 |r|; no count differs)."""
+    state_err = float((k['state'] - p['state']).abs().max())
+    rew_err = float((k['reward_sum'] - p['reward_sum']).abs().max())
+    flips = {key: int((k[key] != p[key]).sum())
+             for key in ('done_count', 'ctrl_step', 'violation_count')}
+    ok = (state_err <= 1e-4 and bool(((k['reward_sum'] - p['reward_sum']).abs()
+                                       <= 1e-4 + 1e-4 * p['reward_sum'].abs()).all())
+          and not any(flips.values()))
+    return state_err, rew_err, flips, ok
+
+
+def _trained_actor_k4(label, ctrl, smi):
+    """``ctrl``'s trained actor through ``evaluate_fused`` at B (K4's policy
+    mode, path and launches asserted), then K4 on the launch inputs the
+    closed loop builds against its plain version (1e-4)."""
+    from safe_control_gym_tpu_torch.experiments import fused_eval as fe
+    from safe_control_gym_tpu_torch.experiments.benchmark_suite import _kernel
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    before = rk.cartpole_rollout.policy_launches
+    res = ctrl.evaluate_fused(batch=B, n_steps=T_OFF_POLICY_EVAL, seed=0)
+    torch.cuda.synchronize()
+    eval_launches = rk.cartpole_rollout.policy_launches - before
+    spec = fe.policy_eval_spec(ctrl, ctrl.env)
+    s0, cfg, kw = fe.kernel_inputs(spec, ctrl.env, B, 0, False)
+    kernel, plain = _kernel('cartpole')[1], _plain_rollout('cartpole')
+    k = kernel(s0, cfg, 7, T_OFF_POLICY_CHECK, **kw)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    p = plain(s0, cfg, 7, T_OFF_POLICY_CHECK, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    state_err, rew_err, flips, ok = _compare_rollouts(k, p)
+    ms = time_ms(lambda: kernel(s0, cfg, 8, T_OFF_POLICY_CHECK, **kw), 3)
+    pp = kw['policy_params']
+    row = dict(path=res['path'], batch=B, T=T_OFF_POLICY_EVAL,
+               ctrl_steps_per_s=res['steps_per_sec'], ep_return_mean=res['ep_return_mean'],
+               ep_length_mean=res['ep_length_mean'], policy_launches=eval_launches,
+               check_T=T_OFF_POLICY_CHECK, state_err=state_err, reward_err=rew_err,
+               envs_with_other_counts=flips, ok=ok, ms=ms, plain_ms=e0.elapsed_time(e1),
+               actor=f'{pp.nx}->{pp.h1}->{pp.h2}->{pp.nu_out}', card=smi)
+    emit('off_policy', part=f'{label} evaluate_fused', **row)
+    if res['path'] != 'policy-in-kernel' or eval_launches < 1:
+        raise RuntimeError(f'off_policy {label}: evaluate_fused took {res["path"]} with '
+                           f'{eval_launches} policy launches')
+    if not ok:
+        raise RuntimeError(f'off_policy {label}: K4 in policy mode disagrees with its plain '
+                           f'version: {row}')
+    return row
+
+
+def off_policy(dev, smi):
+    """SAC and DDPG training on the card through the entry points, K1-K3
+    stepping every collect; see the module docstring."""
+    from safe_control_gym_tpu_torch.controllers.ddpg.ddpg_utils import DDPGAgent
+    from safe_control_gym_tpu_torch.controllers.sac.sac_utils import SACAgent
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
+    t_phase = time.perf_counter()
+    rows = {}
+    rk.cartpole_rollout.policy_launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        env_id, task, algo = eval_config('sac', 'cartpole')
+        sac = _off_policy_ctrl('sac', dev, out_dir, env_id, task,
+                               dict(algo, max_env_steps=OFF_POLICY_STEPS))
+        row = _off_policy_train('sac cartpole', sac, 'cartpole_advance', smi)
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = sac.run(n_episodes=10)
+        row['eval_s'] = time.perf_counter() - t0
+        eval_launches = _launches()
+        eval_steps = sac.eval_env.func.max_steps + 1
+        row.update(eval_return=float(res['ep_returns'].mean()),
+                   eval_returns=res['ep_returns'].tolist(), eval_bar=SAC_EVAL_BAR,
+                   eval_launches=eval_launches)
+        emit('off_policy', part='sac cartpole eval', eval_s=row['eval_s'],
+             eval_return=row['eval_return'], eval_returns=row['eval_returns'],
+             eval_launches=eval_launches, eval_bar=SAC_EVAL_BAR)
+        _expect_launches('off_policy sac eval', eval_launches, 'cartpole_advance', eval_steps)
+        if not row['eval_return'] > SAC_EVAL_BAR:
+            raise RuntimeError(f'off_policy sac cartpole: eval return {row["eval_return"]} '
+                               f'not above {SAC_EVAL_BAR}')
+        rows['sac cartpole'] = row
+        # One window of a training iteration under the profiler: the collect
+        # (policy phase) and the train_interval updates.
+        sac._marks = []
+        c_wall, c_busy, c_kernels = _profiled(lambda: sac.collect(False), cpu_activity=False)
+        u_wall, u_busy, u_kernels = _profiled(sac.train_phase, cpu_activity=False)
+        rows['sac trace'] = dict(
+            window=f'one collect ({sac.steps_per_iter} steps) and one train phase '
+                   f'({int(sac.train_interval)} updates), each under torch.profiler',
+            collect_s=c_wall, collect_device_busy_s=c_busy, kernels_per_step=c_kernels
+            / sac.steps_per_iter, train_s=u_wall, train_device_busy_s=u_busy,
+            kernels_per_update=u_kernels / int(sac.train_interval),
+            device_busy_share=(c_busy + u_busy) / (c_wall + u_wall), card=smi)
+        emit('off_policy', part='sac trace', **rows['sac trace'])
+        kw = {k: getattr(sac, k) for k in ('hidden_dim', 'gamma', 'tau', 'init_temperature',
+                                             'use_entropy_tuning', 'target_entropy', 'actor_lr',
+                                             'critic_lr', 'entropy_lr', 'activation')}
+        rows['sac update'] = _update_pair(SACAgent, sac, kw)
+        emit('off_policy', part='sac update card against CPU', **rows['sac update'])
+        rows['sac k4'] = _trained_actor_k4('sac cartpole', sac, smi)
+        sac.close()
+        for system, kname in (('quadrotor_2D', 'quad2d_advance'),
+                              ('quadrotor_3D', 'quad3d_advance')):
+            env_id, task, algo = eval_config('sac', system)
+            n, spi = int(algo['rollout_batch_size']), int(algo['train_interval']) // int(
+                algo['rollout_batch_size'])
+            warm_iters = -(-int(algo['warm_up_steps']) // (n * spi))
+            ctrl = _off_policy_ctrl('sac', dev, out_dir, env_id, task, dict(
+                algo, max_env_steps=(warm_iters + OFF_POLICY_QUAD_ITERATIONS) * n * spi))
+            rows[f'sac {system}'] = _off_policy_train(f'sac {system}', ctrl, kname, smi)
+            ctrl.close()
+        ddpg = _off_policy_ctrl('ddpg', dev, out_dir, 'cartpole',
+                                dict(normalized_rl_action_space=True), DDPG_TEST)
+        row = _off_policy_train('ddpg cartpole', ddpg, 'cartpole_advance', smi)
+        a = ddpg.select_action(np.zeros(4, np.float32))
+        res = ddpg.run(n_episodes=3)
+        row.update(action_at_zero=a.tolist(), eval_returns=res['ep_returns'].tolist())
+        emit('off_policy', part='ddpg cartpole checks', action_at_zero=row['action_at_zero'],
+             eval_returns=row['eval_returns'])
+        if not (abs(float(a[0])) < 0.999 and np.isfinite(res['ep_returns']).all()):
+            raise RuntimeError(f'off_policy ddpg: saturated or non-finite: {a}, {res}')
+        rows['ddpg cartpole'] = row
+        kw = {k: getattr(ddpg, k) for k in ('hidden_dim', 'gamma', 'tau', 'actor_lr',
+                                              'critic_lr')}
+        rows['ddpg update'] = _update_pair(DDPGAgent, ddpg, kw)
+        emit('off_policy', part='ddpg update card against CPU', **rows['ddpg update'])
+        rows['ddpg k4'] = _trained_actor_k4('ddpg cartpole', ddpg, smi)
+        ddpg.close()
+    for name in ('sac update', 'ddpg update'):
+        if not rows[name]['max_abs_err'] <= OFF_POLICY_UPDATE_ATOL:
+            raise RuntimeError(f'off_policy: the card\'s {name} differs from the CPU\'s: '
+                               f'{rows[name]}')
+    launches = {
+        'cartpole_advance': rows['sac cartpole']['launches']['cartpole_advance']
+        + rows['sac cartpole']['eval_launches']['cartpole_advance']
+        + rows['ddpg cartpole']['launches']['cartpole_advance'],
+        'quad2d_advance': rows['sac quadrotor_2D']['launches']['quad2d_advance'],
+        'quad3d_advance': rows['sac quadrotor_3D']['launches']['quad3d_advance'],
+        'cartpole_rollout.policy': rows['sac k4']['policy_launches']
+        + rows['ddpg k4']['policy_launches']}
+    emit('off_policy', part='done', launches=launches, seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return launches, rows
+
+
+def _recording(ctrl, n):
+    """Wrap ``ctrl``'s ``step_autoreset`` to keep the inputs and next states
+    of its first ``n`` steps: (state before, action, next state)."""
+    record = []
+    step_autoreset = ctrl.func_env.step_autoreset
+
+    def recording(est, act, gen):
+        est2, out, obs = step_autoreset(est, act, gen)
+        if len(record) < n:
+            record.append((est, act.clone(), out.state.clone()))
+        return est2, out, obs
+
+    ctrl.func_env.step_autoreset = recording
+    return record
+
+
+def _replay_record(env_id, task_cfg, dev, record):
+    """Each recorded step replayed through a card env made with
+    ``pallas_physics=False`` (the kernel's plain twin), from the recorded
+    state, action and adversary buffer: the largest state difference, and
+    the largest adversary force applied."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env = make(env_id, device=dev, pallas_physics=False, **task_cfg)
+    err, force = 0.0, 0.0
+    for est, act, want in record:
+        _, out = env.func.step(est, act)
+        err = max(err, float((out.state - want).abs().max()))
+        force = max(force, float((est.adv_action * est.adv_valid[:, None]).abs().max()))
+    env.close()
+    return err, force
+
+
+def _robust_learner(algo, dev, out_dir, smi, **over):
+    """RARL or RAP on tests/test_rarl_behavior.py's cartpole through
+    make -> reset -> learn, launches counted and the first ROBUST_REPLAY
+    collect steps replayed through the plain twin."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    ctrl = make(algo, functools.partial(make, 'cartpole', device=dev, **RARL_TASK),
+                training=True, output_dir=os.path.join(out_dir, algo), seed=1,
+                checkpoint_path='', max_env_steps=ROBUST_STEPS, **RARL_ALGO, **over)
+    record = _recording(ctrl, ROBUST_REPLAY)
+    _zero_launches()
+    wall = _train(ctrl)
+    launches = _launches()
+    err, force = _replay_record('cartpole', RARL_TASK, dev, record)
+    cycles = ctrl.total_steps / ((int(ctrl.agent_iterations) + int(ctrl.adversary_iterations))
+                                 * ctrl.N * ctrl.T)
+    last = ctrl.last_results
+    row = dict(envs=ctrl.N, T=ctrl.T, hidden=int(ctrl.hidden_dim), total_steps=ctrl.total_steps,
+               wall_s=wall, cycles=cycles, seconds_per_cycle=wall / cycles,
+               rollout_s=ctrl.train_seconds['rollout'], update_s=ctrl.train_seconds['update'],
+               last_results=last, replay_steps=len(record), replay_max_abs_err=err,
+               max_adversary_force=force, launches=launches, card=smi)
+    emit('robust', part=algo, **row)
+    losses = [v for k, v in last.items() if k.endswith('_loss') or k.endswith('_kl')]
+    if len(losses) != 8 or not all(np.isfinite(v) for v in losses):
+        raise RuntimeError(f'robust {algo}: losses missing or not finite: {last}')
+    _expect_launches(f'robust {algo}', launches, 'cartpole_advance', ctrl.total_steps // ctrl.N)
+    if err != 0.0 or not force > 0.0 or len(record) != ROBUST_REPLAY:
+        raise RuntimeError(f'robust {algo}: replay error {err}, adversary force {force}, '
+                           f'{len(record)} steps recorded')
+    ctrl.close()
+    return row
+
+
+def _safe_explorer_episode(system, kname, dev, out_dir, smi):
+    """The committed SafeExplorerPPO stab model of ``system`` through
+    BaseExperiment for one episode, one ``kname`` launch a step; the cartpole
+    one gated on tests/test_safe_explorer_behavior.py's bar, the 2D quad's on
+    finite actions."""
+    from safe_control_gym_tpu_torch.experiments.base_experiment import BaseExperiment
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env_id, task, algo = eval_config('safe_explorer_ppo', system)
+    env_func = functools.partial(make, env_id, device=dev, **task)
+    se = make('safe_explorer_ppo', env_func, training=False,
+              output_dir=os.path.join(out_dir, f'se_{system}'), **algo)
+    se.load(os.path.join(ROOT, 'examples', 'rl', 'models', 'safe_explorer_ppo',
+                         f'safe_explorer_ppo_model_{system}_stab.pt'))
+    _zero_launches()
+    t0 = time.perf_counter()
+    exp = BaseExperiment(env=env_func(), ctrl=se)
+    data, metrics = exp.run_evaluation(n_episodes=1, verbose=False)
+    exp.close()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    se.close()
+    length = float(metrics['average_length'])
+    finite = bool(np.isfinite(np.asarray(data['action'][0], np.float32)).all())
+    row = dict(wall_s=wall, ms_per_step=wall / length * 1e3, average_length=length,
+               average_return=float(metrics['average_return']),
+               average_constraint_violation=float(metrics['average_constraint_violation']),
+               actions_finite=finite, launches=launches, card=smi)
+    emit('robust', part=f'safe_explorer {system} committed model', **row)
+    if system == 'cartpole':
+        row['bar_length'] = SE_EVAL_LENGTH
+        if not (length >= SE_EVAL_LENGTH and metrics['average_constraint_violation'] == 0):
+            raise RuntimeError(f'robust safe_explorer: the committed model misses its bar: '
+                               f'{metrics}')
+    elif not (finite and np.isfinite(row['average_return'])):
+        raise RuntimeError(f'robust safe_explorer {system}: non-finite actions or return')
+    _expect_launches(f'robust safe_explorer {system}', launches, kname, int(length))
+    return row
+
+
+def robust(dev, smi):
+    """RARL, RAP and SafeExplorerPPO on the card through the entry points,
+    K1 (and K2) stepping every collect with the adversary's force; see the
+    module docstring."""
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    t_phase = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        rows['rarl'] = _robust_learner('rarl', dev, out_dir, smi)
+        rows['rap'] = _robust_learner('rap', dev, out_dir, smi, num_adversaries=2)
+        # One RARL rollout on the 2D quad: K2 takes the adversary's world force.
+        quad_task = dict(RARL_TASK, quad_type=2, ctrl_freq=50, pyb_freq=1000)
+        ctrl = make('rarl', functools.partial(make, 'quadrotor', device=dev, **quad_task),
+                    training=True, output_dir=os.path.join(out_dir, 'quad'), seed=1,
+                    checkpoint_path='', **dict(RARL_ALGO, rollout_steps=ROBUST_QUAD_T))
+        ctrl.reset()
+        record = _recording(ctrl, ROBUST_QUAD_T)
+        _zero_launches()
+        ctrl.rollout(True)
+        torch.cuda.synchronize()
+        launches = _launches()
+        err, force = _replay_record('quadrotor', quad_task, dev, record)
+        rows['rarl quadrotor_2D'] = dict(envs=ctrl.N, T=ROBUST_QUAD_T, replay_max_abs_err=err,
+                                         max_adversary_force=force, launches=launches)
+        emit('robust', part='rarl quadrotor_2D rollout', **rows['rarl quadrotor_2D'])
+        _expect_launches('robust rarl quadrotor_2D', launches, 'quad2d_advance', ROBUST_QUAD_T)
+        if err != 0.0 or not force > 0.0:
+            raise RuntimeError(f'robust rarl quadrotor_2D: replay error {err}, force {force}')
+        ctrl.close()
+        # SafeExplorerPPO: the committed stab models' episodes. The cartpole
+        # file's PPO parameters are NaN (in the JAX package too): its actions
+        # are NaN, and the bar of tests/test_safe_explorer_behavior.py holds
+        # because NaN states violate nothing. The 2D quad's are finite.
+        for system, kname in (('cartpole', 'cartpole_advance'), ('quadrotor_2D', 'quad2d_advance')):
+            rows[f'safe_explorer {system}'] = _safe_explorer_episode(system, kname, dev, out_dir,
+                                                                     smi)
+        # The committed pretrain config, cut in depth.
+        env_id, task, algo = eval_config('safe_explorer_ppo', 'cartpole', 'pretrain')
+        algo = dict(algo, constraint_epochs=SE_EPOCHS,
+                    max_env_steps=int(algo['rollout_batch_size']) * int(algo['rollout_steps']))
+        se = make('safe_explorer_ppo', functools.partial(make, env_id, device=dev, **task),
+                  training=True, output_dir=os.path.join(out_dir, 'se'), seed=0,
+                  checkpoint_path='', **algo)
+        _zero_launches()
+        wall = _train(se)
+        launches = _launches()
+        pre_steps = SE_EPOCHS * (int(algo['constraint_steps_per_epoch']) // se.N)
+        last = se.last_results
+        rows['safe_explorer train'] = dict(
+            envs=se.N, T=se.T, constraint_epochs=SE_EPOCHS, pretrain_steps=pre_steps,
+            total_steps=se.total_steps, wall_s=wall,
+            pretrain_s=se.train_seconds['pretrain_collect'] + se.train_seconds['pretrain_fit'],
+            **se.train_seconds, last_results=last, launches=launches, card=smi)
+        emit('robust', part='safe_explorer pretrain and PPO', **rows['safe_explorer train'])
+        se.close()
+        if not all(np.isfinite(v) for v in last.values()):
+            raise RuntimeError(f'robust safe_explorer: a loss is not finite: {last}')
+        _expect_launches('robust safe_explorer train', launches, 'cartpole_advance',
+                         pre_steps + se.T)
+    launches = {'cartpole_advance': sum(rows[k]['launches']['cartpole_advance'] for k in (
+        'rarl', 'rap', 'safe_explorer cartpole', 'safe_explorer train')),
+                'quad2d_advance': rows['rarl quadrotor_2D']['launches']['quad2d_advance']
+                + rows['safe_explorer quadrotor_2D']['launches']['quad2d_advance']}
+    emit('robust', part='done', launches=launches, seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2904,7 +3369,8 @@ def main():
         # Some phases alone (a development run): their lines, and no result.
         for phase in only.split(','):
             timed(phase, {'control': control, 'mpc': mpc, 'gp_mpc': gp_mpc,
-                          'safety': safety}[phase], dev, smi)
+                          'safety': safety, 'off_policy': off_policy,
+                          'robust': robust}[phase], dev, smi)
         emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
              card=smi, phases=only)
         return
@@ -2921,6 +3387,8 @@ def main():
     mpc_launches, mpc_rows = timed('mpc', mpc, dev, smi)
     gp_launches, gp_rows = timed('gp_mpc', gp_mpc, dev, smi)
     sf_launches, sf_rows = timed('safety', safety, dev, smi)
+    op_launches, op_rows = timed('off_policy', off_policy, dev, smi)
+    rb_launches, rb_rows = timed('robust', robust, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -2934,6 +3402,14 @@ def main():
         row['main_path_bound_ms'] = bound_ms(
             policy_rollout_bytes(system, kw, bench['T']),
             policy_rollout_ops(system, kw, bench['T'], bench['mean_done_count'] * B))[0]
+        if system == 'cartpole':
+            row['off_policy_launches'] = op_launches['cartpole_rollout.policy']
+            row['off_policy_shape'] = (
+                f'evaluate_fused B={B} T={T_OFF_POLICY_EVAL} of the SAC and DDPG actors '
+                f'trained in phase off_policy ({op_rows["sac k4"]["actor"]}, '
+                f'{op_rows["ddpg k4"]["actor"]}); each held to the plain version over '
+                f'{T_OFF_POLICY_CHECK} steps (state errors {op_rows["sac k4"]["state_err"]}, '
+                f'{op_rows["ddpg k4"]["state_err"]})')
     cycles_ms = lambda cycles: cycles / (serial['clock_ghz'] * 1e6)
     for system in SYSTEMS:
         # The per-step kernel's chain bound: n_substeps x one substep's
@@ -2988,6 +3464,36 @@ def main():
                           f'and certified by linear MPSC ({c5["certified"]["steps"]} steps, and '
                           'a 2-step profiler window), 20 substeps'),
             'quadrotor_3D': 'not on the safety path'}[system]
+        row['off_policy_launches'] = op_launches[PHYSICS[system]['name']]
+        sc, dd = op_rows['sac cartpole'], op_rows['ddpg cartpole']
+        row['off_policy_shape'] = {
+            'cartpole': (f'SAC collects B={sc["envs"]} ({sc["total_steps"]} env steps) and its '
+                         f'10-episode eval, DDPG collects B={dd["envs"]} '
+                         f'({dd["total_steps"]} env steps), 1 substep'),
+            'quadrotor': (f'SAC collects B={op_rows["sac quadrotor_2D"]["envs"]} '
+                          f'({op_rows["sac quadrotor_2D"]["total_steps"]} env steps), '
+                          '20 substeps'),
+            'quadrotor_3D': (f'SAC collects B={op_rows["sac quadrotor_3D"]["envs"]} '
+                             f'({op_rows["sac quadrotor_3D"]["total_steps"]} env steps), '
+                             '20 substeps')}[system]
+        row['robust_launches'] = rb_launches.get(PHYSICS[system]['name'], 0)
+        row['robust_shape'] = {
+            'cartpole': (f'RARL and RAP collects B={rb_rows["rarl"]["envs"]} '
+                         f'({rb_rows["rarl"]["total_steps"]} env steps each, the adversary\'s '
+                         'tab force in the force operand, 50 substeps); SafeExplorerPPO: the '
+                         f'committed model\'s episode B=1 '
+                         f'({int(rb_rows["safe_explorer cartpole"]["average_length"])} steps), '
+                         'pretraining and one PPO iteration '
+                         f'B={rb_rows["safe_explorer train"]["envs"]} '
+                         f'({rb_rows["safe_explorer train"]["pretrain_steps"]} + '
+                         f'{rb_rows["safe_explorer train"]["T"]} steps), 1 substep'),
+            'quadrotor': (f'one RARL rollout B={rb_rows["rarl quadrotor_2D"]["envs"]} '
+                          f'T={rb_rows["rarl quadrotor_2D"]["T"]}, the adversary\'s world '
+                          'force in the force operand; SafeExplorerPPO: the committed 2D '
+                          f'model\'s episode B=1 '
+                          f'({int(rb_rows["safe_explorer quadrotor_2D"]["average_length"])} '
+                          'steps); 20 substeps'),
+            'quadrotor_3D': 'not on the robust path'}[system]
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

@@ -1,7 +1,7 @@
 """Controllers of the port, registered at import time: LQR, iLQR and PID;
-MPC, linear MPC, MPC_ACADOS and GP-MPC; PPO (with training), SAC and DDPG (at
-inference; their training and the other controllers come with later
-slices)."""
+MPC, linear MPC, MPC_ACADOS and GP-MPC; and the RL learners, each with
+training, evaluation, ``save`` and ``load``: PPO, SAC, DDPG, SafeExplorerPPO,
+RARL and RAP (the last two need an env with ``adversary_disturbance``)."""
 
 from safe_control_gym_tpu_torch.utils.registration import register
 
@@ -35,3 +35,12 @@ register(idx='sac',
 register(idx='ddpg',
          entry_point='safe_control_gym_tpu_torch.controllers.ddpg.ddpg:DDPG',
          config_entry_point='safe_control_gym_tpu_torch.controllers.ddpg:ddpg.json')
+register(idx='safe_explorer_ppo',
+         entry_point='safe_control_gym_tpu_torch.controllers.safe_explorer.safe_ppo:SafeExplorerPPO',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.safe_explorer:safe_explorer_ppo.json')
+register(idx='rarl',
+         entry_point='safe_control_gym_tpu_torch.controllers.rarl.rarl:RARL',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.rarl:rarl.json')
+register(idx='rap',
+         entry_point='safe_control_gym_tpu_torch.controllers.rarl.rap:RAP',
+         config_entry_point='safe_control_gym_tpu_torch.controllers.rarl:rap.json')

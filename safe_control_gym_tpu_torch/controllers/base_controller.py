@@ -8,33 +8,25 @@ under ``output_dir``), ``seed``, the algorithm's config as attributes,
 ``prior_prop`` and, with ``randomize_prior_prop``, draws from
 ``np.random.default_rng(seed)``. LQR, iLQR and PID derive from it.
 
-``RLController`` adds what PPO, SAC and DDPG have in common: the env from
+``RLController`` adds what the RL learners (PPO, SAC, DDPG,
+SafeExplorerPPO, RARL, RAP) have in common: the env from
 ``env_func(seed=seed)`` (on the device ``env_func`` gives it), the default
-config of the algorithm, the generator on the env's device, ``load``
-through the port's restricted unpickler and ``evaluate_fused``. PPO trains
-(``controllers/ppo/ppo.py``); SAC's and DDPG's ``learn`` raise until ROADMAP
-Queue 1 item 9.
+config of the algorithm, the generator on the env's device, the logger, the
+device-timing marks, the batched deterministic evaluation, ``load`` through
+the port's restricted unpickler and ``evaluate_fused``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from abc import ABC, abstractmethod
-from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
-__all__ = ['ActorAgent', 'BaseController', 'RLController']
-
-
-@dataclass
-class ActorAgent:
-    """The agent of an RL controller at inference: its parameter pytree
-    (tensors, the JAX package's layout) and the hidden activation."""
-    params: dict
-    activation: str
+__all__ = ['BaseController', 'RLController']
 
 
 class BaseController(ABC):
@@ -123,15 +115,15 @@ class BaseController(ABC):
 
 class RLController(BaseController):
     """An RL controller: the env from ``env_func(seed=seed)`` (pick its device
-    with ``partial(make, env_id, device=...)``), the actor's parameters on the
-    env's device, ``load`` from a JAX package checkpoint and
-    ``evaluate_fused``. The algorithm's default config (``<algo>.json``) fills
-    in every key the caller leaves out, and every key becomes an attribute.
-    Subclasses build ``self.agent`` (``params`` and ``activation``) and
-    ``select_action``; one that trains overrides ``learn``."""
+    with ``partial(make, env_id, device=...)``), the agent's parameters on the
+    env's device, its own generator there, the experiment logger, the
+    batched deterministic evaluation, ``load`` of a checkpoint's agent and
+    ``evaluate_fused``. The algorithm's default config (``<algo>.json``)
+    fills in every key the caller leaves out, and every key becomes an
+    attribute. Subclasses build ``self.agent`` (``params`` and
+    ``activation``), ``select_action`` and ``learn``."""
 
     ALGO = 'rl'
-    LEARN_ITEM = ''
 
     def __init__(self, env_func, training: bool = True,
                  checkpoint_path: str = 'model_latest.pt', output_dir: str = 'temp',
@@ -143,26 +135,97 @@ class RLController(BaseController):
         self.env = env_func(seed=self.seed)
         self.device = self.env.device
         self.gen = torch.Generator(device=self.device).manual_seed(int(self.seed))
+        self._logger = None
+
+    @property
+    def logger(self):
+        """The experiment logger under ``output_dir``, made on first use."""
+        if self._logger is None:
+            from safe_control_gym_tpu_torch.utils.logging import ExperimentLogger
+            self._logger = ExperimentLogger(self.output_dir,
+                                            use_tensorboard=getattr(self, 'tensorboard', False))
+        return self._logger
+
+    def close(self):
+        self.env.close()
+        if getattr(self, 'eval_env', None) is not None:
+            self.eval_env.close()
+        if self._logger is not None:
+            self._logger.close()
+
+    def setup_results_dict(self):
+        self.results_dict = {'obs': [], 'reward': [], 'done': [], 'info': [], 'action': []}
 
     def _tensor(self, obs):
         return torch.as_tensor(np.asarray(obs), dtype=torch.float32, device=self.device)
 
-    def learn(self, env=None, **kwargs):
-        raise NotImplementedError(f'{self.ALGO} training comes with {self.LEARN_ITEM}; '
-                                  'this controller evaluates loaded checkpoints')
+    def _mark(self):
+        """A point in time: a recorded CUDA event on the card, else the host clock."""
+        if self.device.type == 'cuda':
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    @staticmethod
+    def _seconds(a, b):
+        return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
+
+    def _restore_generator(self, key):
+        """The generator's state from a checkpoint's ``key``: the port's
+        (uint8 state) is restored; a JAX PRNG key has no counterpart, so the
+        generator is re-seeded from the controller's seed instead."""
+        if key is not None and np.asarray(key).dtype == np.uint8:
+            self.gen.set_state(torch.from_numpy(np.array(key, np.uint8)))
+        else:
+            self.gen.manual_seed(int(self.seed))
+
+    @torch.no_grad()
+    def _evaluate(self, env, n_episodes, action_fn):
+        """Deterministic evaluation: ``n_episodes`` envs of ``env`` from fresh
+        resets, stepped ``max_steps + 1`` times with ``action_fn(obs)``, each
+        counted until its first done. Returns numpy ``ep_returns``,
+        ``ep_lengths`` and ``ep_mse`` (the mean over the alive steps)."""
+        func = env.func
+        n = int(n_episodes)
+        est, obs = func.reset_batch(self.gen, n)
+        alive = torch.ones(n, dtype=torch.bool, device=self.device)
+        rews, lengths, mses = [], [], []
+        for _ in range(func.max_steps + 1):
+            est, out = func.step(est, action_fn(obs), gen=self.gen)
+            zero = torch.zeros_like(out.reward)
+            rews.append(torch.where(alive, out.reward, zero))
+            lengths.append(alive.to(torch.float32))
+            mses.append(torch.where(alive, out.mse, zero))
+            alive = alive & ~out.done
+            obs = out.obs
+        ep_len = torch.stack(lengths).sum(0)
+        ep_ret, ep_mse = torch.stack(rews).sum(0), torch.stack(mses).sum(0)
+        ep = torch.stack([ep_ret, ep_len, ep_mse / torch.clamp(ep_len, min=1.0)]).cpu().numpy()
+        return {'ep_returns': ep[0], 'ep_lengths': ep[1], 'ep_mse': ep[2]}
+
+    def _run_episodes(self, env, n_episodes):
+        """``n_episodes`` episodes of ``select_action`` on the stateful
+        ``env``, each to its done; numpy ``ep_returns``."""
+        returns = []
+        for _ in range(int(n_episodes)):
+            obs, info = env.reset()
+            done, ep_ret = False, 0.0
+            while not done:
+                obs, rew, done, info = env.step(self.select_action(obs, info))
+                ep_ret += rew
+            returns.append(ep_ret)
+        return {'ep_returns': np.asarray(returns)}
 
     def load(self, path):
         """Restore the agent's parameters and the observation normalizer from
-        a checkpoint the JAX package wrote (PPO restores its whole training
+        a checkpoint (the learners that train restore their whole training
         state instead)."""
         from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint
-        from safe_control_gym_tpu_torch.utils.convert import (mlp_params_from_numpy,
-                                                              normalizer_from_numpy)
+        from safe_control_gym_tpu_torch.utils.convert import (normalizer_from_numpy,
+                                                              tree_from_numpy)
         ckpt = load_checkpoint(path)
-        self.agent.params = {
-            k: (mlp_params_from_numpy(v, self.device) if isinstance(v, list)
-                else torch.tensor(np.asarray(v, np.float32), device=self.device))
-            for k, v in ckpt['params'].items()}
+        self.agent.params = tree_from_numpy(ckpt['params'], self.device)
         self.obs_norm_state = normalizer_from_numpy(ckpt['obs_norm_state'], self.device)
 
     def evaluate_fused(self, env=None, batch=1024, n_steps=4096, seed=0, **kwargs):

@@ -76,33 +76,14 @@ class PPO(RLController):
         # Seconds of device time in the rollouts and in the updates of learn().
         self.train_seconds = {'rollout': 0.0, 'update': 0.0}
         self.last_results = {}     # the last training iteration's scalars
-        self._logger = None
         self._env_states = None
         self._obs = None
-
-    @property
-    def logger(self):
-        """The experiment logger under ``output_dir``, made on first use."""
-        if self._logger is None:
-            from safe_control_gym_tpu_torch.utils.logging import ExperimentLogger
-            self._logger = ExperimentLogger(self.output_dir,
-                                            use_tensorboard=getattr(self, 'tensorboard', False))
-        return self._logger
 
     def reset(self):
         """Start the N training envs afresh (when training) and clear the results."""
         if self.training:
             self._env_states, self._obs = self.func_env.reset_batch(self.gen, self.N)
         self.setup_results_dict()
-
-    def close(self):
-        self.env.close()
-        self.eval_env.close()
-        if self._logger is not None:
-            self._logger.close()
-
-    def setup_results_dict(self):
-        self.results_dict = {'obs': [], 'reward': [], 'done': [], 'info': [], 'action': []}
 
     def _normalize_obs(self, obs_norm, obs):
         return rms_normalize(obs_norm, obs, float(self.clip_obs)) if self.norm_obs else obs
@@ -177,17 +158,6 @@ class PPO(RLController):
             self.ret_norm_state = ret_state
         return batch, stats
 
-    def _mark(self):
-        if self.device.type == 'cuda':
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
-        return time.perf_counter()
-
-    @staticmethod
-    def _seconds(a, b):
-        return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
-
     def _iterations(self, k: int):
         """``k`` iterations (rollout, then update) back to back; returns the
         mean of their losses and stats, read back once, and the seconds of
@@ -245,34 +215,15 @@ class PPO(RLController):
             self.last_results = results
         self.save(self.checkpoint_path)
 
-    @torch.no_grad()
     def run(self, env=None, render=False, n_episodes=10, verbose=False, **kwargs):
-        """Deterministic evaluation: ``n_episodes`` envs from fresh resets,
-        stepped ``max_steps + 1`` times with the policy's mode, each counted
-        until its first done. Returns numpy ``ep_returns``, ``ep_lengths``
-        and ``ep_mse`` (the mean over the alive steps)."""
-        env = self.eval_env if env is None else env
-        func = env.func
-        n = int(n_episodes)
+        """Deterministic evaluation of the policy's mode on ``n_episodes``
+        envs at once (``RLController._evaluate``): numpy ``ep_returns``,
+        ``ep_lengths`` and ``ep_mse``."""
         obs_norm = (self.obs_norm_state if self.obs_norm_state is not None
                     else rms_init((self.env.observation_space.shape[0],), device=self.device))
-        est, obs = func.reset_batch(self.gen, n)
-        alive = torch.ones(n, dtype=torch.bool, device=self.device)
-        rews, lengths, mses = [], [], []
-        for _ in range(func.max_steps + 1):
-            act = actor_dist(self.agent.params, self._normalize_obs(obs_norm, obs),
-                             self.agent.activation).mode()
-            est, out = func.step(est, act, gen=self.gen)
-            zero = torch.zeros_like(out.reward)
-            rews.append(torch.where(alive, out.reward, zero))
-            lengths.append(alive.to(torch.float32))
-            mses.append(torch.where(alive, out.mse, zero))
-            alive = alive & ~out.done
-            obs = out.obs
-        ep_len = torch.stack(lengths).sum(0)
-        ep_ret, ep_mse = torch.stack(rews).sum(0), torch.stack(mses).sum(0)
-        ep = torch.stack([ep_ret, ep_len, ep_mse / torch.clamp(ep_len, min=1.0)]).cpu().numpy()
-        return {'ep_returns': ep[0], 'ep_lengths': ep[1], 'ep_mse': ep[2]}
+        env = self.eval_env if env is None else env
+        return self._evaluate(env, n_episodes, lambda obs: actor_dist(
+            self.agent.params, self._normalize_obs(obs_norm, obs), self.agent.activation).mode())
 
     # ------------------------------------------------------------------
     def log_step(self, results):
@@ -318,11 +269,7 @@ class PPO(RLController):
         if state.get('ret_norm_state') is not None:
             self.ret_norm_state = ret_state_from_numpy(state['ret_norm_state'], self.device)
         self.total_steps = int(state.get('total_steps', 0))
-        key = state.get('key')
-        if key is not None and np.asarray(key).dtype == np.uint8:
-            self.gen.set_state(torch.from_numpy(np.array(key, np.uint8)))
-        else:
-            self.gen.manual_seed(int(self.seed))
+        self._restore_generator(state.get('key'))
         if 'env_states' in state:
             self._env_states = env_state_from_numpy(state['env_states'], self.device)
             self._obs = torch.tensor(np.asarray(state['obs'], np.float32), device=self.device)

@@ -1,56 +1,78 @@
-"""SAC at inference: the deterministic tanh policy of a trained actor.
+"""Soft actor-critic: on-device collects into a replay ring, the twin-Q update, resume.
 
-Port of the inference half of ``safe_control_gym_tpu/controllers/sac/sac.py``:
-the constructor, ``select_action`` (tanh of the actor's mean, unscaled to the
-action box), ``load`` from a JAX package checkpoint, ``evaluate_fused`` and
-``close``. ``learn`` raises until SAC training lands (ROADMAP Queue 1 item 9).
+Port of ``safe_control_gym_tpu/controllers/sac/sac.py``; the loop is
+``off_policy_utils.OffPolicyController``, shared with DDPG. One training
+iteration collects ``steps_per_iter = max(1, train_interval // N)`` steps of
+``rollout_batch_size`` (N) envs through ``FuncEnv.step_autoreset`` (on the
+card, the physics step is K1, K2 or K3 of ``ops/physics_kernels.py``) under
+``torch.no_grad``, with uniform random actions until ``warm_up_steps`` and
+the sampled tanh policy after, and writes each transition into the replay
+ring on the device. The ring stores the terminal observation of an episode as
+``next_obs`` with ``mask = 1 - (done and not truncated)``, so a time limit
+does not cut the bootstrap. Past the warm-up, ``train_interval`` updates
+(``sac_utils.SACAgent.update``) follow each collect, on batches drawn from
+the ring. No tensor is read back inside an iteration; with
+``fused_iterations`` K > 1, K iterations past the warm-up run back to back
+before one read, and ``total_steps`` advances by K iterations.
 
-    ctrl = make('sac', partial(make, 'quadrotor', device='cuda', **task_config),
-                **algo_config)
-    ctrl.load('examples/rl/models/sac/sac_model_quadrotor_3D_stab.pt')
+``run`` evaluates the deterministic policy on ``n_episodes`` envs at once.
+``shard_over`` (multi-GPU training) raises until ROADMAP item 14.
+``save(path, save_buffer=True)`` (the end of ``learn``) also writes the ring,
+the env states and the generator's state, so that ``load`` resumes training
+exactly; ``load`` also takes a checkpoint of the JAX package, whose PRNG key
+re-seeds the generator from the controller's seed.
+
+    ctrl = make('sac', partial(make, 'cartpole', device='cuda', **task_config),
+                training=True, output_dir='temp/sac', seed=0, **algo_config)
+    ctrl.reset(); ctrl.learn(); ctrl.run(n_episodes=10)
 """
 
 from __future__ import annotations
 
 import torch
 
-from safe_control_gym_tpu_torch.controllers.base_controller import ActorAgent, RLController
-from safe_control_gym_tpu_torch.controllers.sac.sac_utils import sac_actor_forward
-from safe_control_gym_tpu_torch.math.networks import mlp_init
+from safe_control_gym_tpu_torch.controllers.off_policy_utils import OffPolicyController
+from safe_control_gym_tpu_torch.controllers.sac.sac_utils import SACAgent, sac_actor_forward
 
 __all__ = ['SAC']
 
-
-class SAC(RLController):
-    """Soft actor-critic, at inference."""
+class SAC(OffPolicyController):
+    """Soft actor-critic."""
 
     ALGO = 'SAC'
-    LEARN_ITEM = 'ROADMAP Queue 1 item 9'
 
-    def __init__(self, env_func, **kwargs):
-        super().__init__(env_func, **kwargs)
-        obs_dim = self.env.observation_space.shape[0]
-        act_dim = self.env.action_space.shape[0]
-        # The actor puts out [mean, log-std]: 2 * act_dim.
-        actor = mlp_init(self.gen, obs_dim, 2 * act_dim, [int(self.hidden_dim)] * 2,
-                         orthogonal=False)
-        self.agent = ActorAgent({'actor': actor}, getattr(self, 'activation', 'relu'))
-        self.act_low = self._tensor(self.env.action_space.low)
-        self.act_high = self._tensor(self.env.action_space.high)
+    def __init__(self, env_func, training=True, checkpoint_path='model_latest.pt',
+                 output_dir='temp', seed: int = 0, **kwargs):
+        super().__init__(env_func, training=training, checkpoint_path=checkpoint_path,
+                         output_dir=output_dir, seed=seed, **kwargs)
+        self.agent = SACAgent(self.env.observation_space, self.env.action_space,
+                              hidden_dim=self.hidden_dim, gamma=self.gamma, tau=self.tau,
+                              init_temperature=self.init_temperature,
+                              use_entropy_tuning=self.use_entropy_tuning,
+                              target_entropy=self.target_entropy, actor_lr=self.actor_lr,
+                              critic_lr=self.critic_lr, entropy_lr=self.entropy_lr,
+                              activation=getattr(self, 'activation', 'relu'), seed=self.seed,
+                              device=self.device)
+        self._setup_training()
 
-    def reset(self):
-        """A fresh results dict (SAC's training envs come with its training,
-        ROADMAP item 9)."""
-        self.setup_results_dict()
+    def shard_over(self, mesh, axis_name: str = 'env', model_axis: str = None):
+        raise NotImplementedError('SAC.shard_over: multi-GPU training comes with '
+                                  'ROADMAP item 14 (torch.distributed)')
 
-    def setup_results_dict(self):
-        self.results_dict = {'obs': [], 'reward': [], 'done': [], 'info': [], 'action': []}
+    def _explore(self, obs, random_phase, draws):
+        """Uniform in the action box in the random phase (``draws``: its
+        U[0, 1) numbers), else a draw of the squashed Gaussian policy
+        (``draws``: its standard normals)."""
+        if random_phase:
+            if draws is None:
+                draws = torch.rand((self.N,) + tuple(self.act_low.shape), generator=self.gen,
+                                   device=self.device)
+            return self._random_action(draws)
+        return sac_actor_forward(self.agent.params['actor'], obs, self.gen, self.act_low,
+                                 self.act_high, self.agent.activation, with_logprob=False,
+                                 noise=draws)[0]
 
-    def select_action(self, obs, info=None):
-        """The deterministic action (tanh of the mean), as numpy float32."""
-        with torch.no_grad():
-            act, _ = sac_actor_forward(self.agent.params['actor'], self._tensor(obs),
-                                       self.gen, self.act_low, self.act_high,
-                                       self.agent.activation, deterministic=True,
-                                       with_logprob=False)
-        return act.cpu().numpy()
+    def _deterministic_action(self, obs):
+        return sac_actor_forward(self.agent.params['actor'], obs, self.gen, self.act_low,
+                                 self.act_high, self.agent.activation, deterministic=True,
+                                 with_logprob=False)[0]

@@ -18,9 +18,18 @@ through its plain twin; ``pallas_physics=False``, the JAX package's opt-out,
 runs the twin itself.
 
 The reset info carries the env's prior model, ``env.symbolic``
-(``envs/symbolic.py``), which each env builds in ``_setup_symbolic``. Not in
-this slice: the viewer and render, randomized inertial properties and the
-adversary channel.
+(``envs/symbolic.py``), which each env builds in ``_setup_symbolic``.
+
+The adversary channel of RARL and RAP: with ``adversary_disturbance`` set to
+a mode of ``DISTURBANCE_MODES`` ('action' or 'dynamics'), each state carries
+``adv_action`` (B, adv_dim) and ``adv_valid`` (B,). Where ``adv_valid`` is
+set, the step adds the adversary's action to the noisy physical action before
+the clip ('action') or to the dynamics force, the physics kernel's force
+operand ('dynamics'), and clears ``adv_valid``. A batched learner writes the
+two fields itself; the shim's ``set_adversary_control`` buffers one action
+(clipped to ``adversary_action_space``, then scaled and offset) for its next
+step. Not in the port yet: the viewer and render, and randomized inertial
+properties.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 
 from safe_control_gym_tpu_torch.envs import constraints as constraints_mod
 from safe_control_gym_tpu_torch.envs import disturbances as disturbances_mod
+from safe_control_gym_tpu_torch.envs.spaces import Box
 from safe_control_gym_tpu_torch.envs.trajectories import generate_trajectory
 from safe_control_gym_tpu_torch.utils.device import resolve_device
 
@@ -63,6 +73,8 @@ class EnvState:
     dist_obs: torch.Tensor    # (B, state_size) per-episode disturbance state
     dist_act: torch.Tensor
     dist_dyn: torch.Tensor
+    adv_action: torch.Tensor  # (B, adv_dim) the adversary's action, scaled
+    adv_valid: torch.Tensor   # (B,) bool: adv_action applies at the next step
 
     def replace(self, **changes) -> 'EnvState':
         return dataclasses.replace(self, **changes)
@@ -206,10 +218,6 @@ class BenchmarkEnv:
             raise NotImplementedError(
                 'randomized_inertial_prop: per-env inertial parameters come with '
                 'the domain-randomization slice of the port')
-        if adversary_disturbance is not None:
-            raise NotImplementedError(
-                'adversary_disturbance: the adversary channel comes with the '
-                'RARL/RAP slice of the port')
         self.GUI = gui
         self.VERBOSE = verbose
         self.output_dir = output_dir
@@ -247,9 +255,12 @@ class BenchmarkEnv:
         self.constraint_penalty = constraint_penalty
         self.constraints = None
 
-        # Disturbances (no adversary channel in this slice).
+        # Disturbances, and the adversary channel of RARL/RAP.
         self.DISTURBANCES = disturbances
-        self.adversary_disturbance = None
+        self.adversary_disturbance = adversary_disturbance
+        self.adversary_disturbance_offset = adversary_disturbance_offset
+        self.adversary_disturbance_scale = adversary_disturbance_scale
+        self.adv_action = None    # the shim's buffered adversary action
 
         # Mutable episode mirrors (populated by reset/step).
         self.state = None
@@ -295,6 +306,27 @@ class BenchmarkEnv:
                 raise ValueError(f'[ERROR] disturbance mode {mode!r} not available.')
             self.disturbances[mode] = disturbances_mod.create_disturbance_list(
                 spec, self.DISTURBANCE_MODES[mode], self.CTRL_STEPS)
+        if self.adversary_disturbance is not None:
+            if self.adversary_disturbance not in self.DISTURBANCE_MODES:
+                raise ValueError('[ERROR] adversary_disturbance mode '
+                                 f'{self.adversary_disturbance!r} not available.')
+            dim = self.DISTURBANCE_MODES[self.adversary_disturbance]['dim']
+            self.adversary_action_space = Box(low=-1.0, high=1.0, shape=(dim,))
+            self.adv_action_dim = dim
+        else:
+            self.adversary_action_space = None
+            self.adv_action_dim = max((m['dim'] for m in self.DISTURBANCE_MODES.values()),
+                                      default=1)
+
+    def set_adversary_control(self, action):
+        """Buffer the adversary's action for the shim's next step: clipped to
+        ``adversary_action_space``, times the scale, plus the offset (no-op
+        without an adversary channel)."""
+        if self.adversary_disturbance is not None:
+            clipped = np.clip(action, self.adversary_action_space.low,
+                              self.adversary_action_space.high)
+            self.adv_action = (clipped * self.adversary_disturbance_scale
+                               + self.adversary_disturbance_offset)
 
     def _generate_trajectory(self, **kwargs):
         return generate_trajectory(**kwargs)
@@ -383,6 +415,8 @@ class BenchmarkEnv:
                                   device=dev)
         dists = {ch: self.disturbances.get(ch) for ch in _CHANNELS}
         dyn_dim = self.DISTURBANCE_MODES.get('dynamics', {'dim': 1})['dim']
+        adv_mode = self.adversary_disturbance
+        adv_dim = self.adv_action_dim
         constraints = self.constraints
         n_con = self.num_constraints
         done_on_violation = self.DONE_ON_VIOLATION
@@ -418,7 +452,9 @@ class BenchmarkEnv:
                 dyn_params=nominal_params,
                 dist_obs=dist_init('observation', gen, n),
                 dist_act=dist_init('action', gen, n),
-                dist_dyn=dist_init('dynamics', gen, n))
+                dist_dyn=dist_init('dynamics', gen, n),
+                adv_action=torch.zeros((n, adv_dim), dtype=torch.float32, device=dev),
+                adv_valid=torch.zeros((n,), dtype=torch.bool, device=dev))
             drawn_obs = (dists['observation'].draw(gen, n)
                          if 'observation' in stochastic else None)
             return est, self._observe(est, x0, drawn_obs, at_reset=True)
@@ -441,14 +477,20 @@ class BenchmarkEnv:
                 noisy = dists['action'].apply_drawn(noisy, est.dist_act,
                                                     est.ctrl_step, t,
                                                     drawn.get('action'))
+            if adv_mode == 'action':
+                noisy = noisy + torch.where(est.adv_valid[:, None],
+                                            est.adv_action[:, :act_dim], 0.0)
             clipped = torch.minimum(torch.maximum(noisy, phys_lo), phys_hi)
             dyn_force = torch.zeros((n, dyn_dim), dtype=torch.float32, device=dev)
             if dists['dynamics']:
                 dyn_force = dists['dynamics'].apply_drawn(
                     dyn_force, est.dist_dyn, est.ctrl_step, t, drawn.get('dynamics'))
+            if adv_mode == 'dynamics':
+                dyn_force = dyn_force + torch.where(est.adv_valid[:, None],
+                                                    est.adv_action[:, :dyn_dim], 0.0)
             x_new = self._advance(est.state, clipped, dyn_force, est.dyn_params)
             step_idx = est.ctrl_step  # not yet incremented
-            est_new = est.replace(state=x_new)
+            est_new = est.replace(state=x_new, adv_valid=torch.zeros_like(est.adv_valid))
             obs = self._observe(est_new, x_new, drawn.get('observation'),
                                 at_reset=False)
             if cost == Cost.RL_REWARD:
@@ -491,8 +533,9 @@ class BenchmarkEnv:
             return est_new.replace(ctrl_step=new_step), out
 
         def step_autoreset(est: EnvState, actions, gen, drawn=None):
-            """``step``, then every done env starts afresh: its state, counter
-            and disturbance state come from a new ``reset_batch`` draw."""
+            """``step``, then every done env starts afresh: its state, counter,
+            disturbance state and adversary buffer come from a new
+            ``reset_batch`` draw."""
             n = est.state.shape[0]
             drawn = dict(drawn or {})
             for ch in stochastic:
@@ -506,7 +549,8 @@ class BenchmarkEnv:
                 ctrl_step=torch.where(out.done, fresh.ctrl_step, est.ctrl_step),
                 dist_obs=torch.where(done_col, fresh.dist_obs, est.dist_obs),
                 dist_act=torch.where(done_col, fresh.dist_act, est.dist_act),
-                dist_dyn=torch.where(done_col, fresh.dist_dyn, est.dist_dyn))
+                dist_dyn=torch.where(done_col, fresh.dist_dyn, est.dist_dyn),
+                adv_action=torch.where(done_col, fresh.adv_action, est.adv_action))
             obs = torch.where(done_col, fresh_obs, out.obs)
             return est, out, obs
 
@@ -552,6 +596,14 @@ class BenchmarkEnv:
             raise ValueError('[ERROR]: The action returned by the controller '
                              'must be 1 dimensional.')
         self.current_raw_action = action
+        if self.adv_action is not None:
+            adv = np.zeros((1, self.adv_action_dim), np.float32)
+            flat = np.atleast_1d(np.asarray(self.adv_action, np.float32)).ravel()
+            adv[0, :flat.size] = flat
+            self._est = self._est.replace(
+                adv_action=torch.as_tensor(adv, device=self.device),
+                adv_valid=torch.ones((1,), dtype=torch.bool, device=self.device))
+            self.adv_action = None
         est, out = self.func.step(self._est,
                                   torch.as_tensor(action[None], dtype=torch.float32),
                                   gen=self.generator)

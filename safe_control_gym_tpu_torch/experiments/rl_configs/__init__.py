@@ -1,8 +1,11 @@
-"""The eval configs of the committed RL models under ``examples/rl/models/``.
+"""The configs of the committed RL models under ``examples/rl/models/``.
 
 JSON copies of ``examples/rl/config_overrides/<system>/<system>_stab.yaml``
-(``task_config``) and ``<algo>_<system>.yaml`` (``algo``, ``algo_config``), so
-that a machine without a YAML parser can rebuild a model's env and controller:
+(``task_config``) and ``<algo>_<system>[_<variant>].yaml`` (``algo``,
+``algo_config`` and, for SafeExplorerPPO, a ``task_config`` of constraints
+laid over the stab task's; its ``pretrain`` variant turns ``pretraining``
+on), so that a machine without a YAML parser can rebuild a model's env and
+controller:
 
     env_id, task_config, algo_config = eval_config('sac', 'quadrotor_3D')
     ctrl = make('sac', partial(make, env_id, device='cuda', **task_config),
@@ -28,9 +31,11 @@ def _load(name):
         return json.load(f)
 
 
-def eval_config(algo: str, system: str):
+def eval_config(algo: str, system: str, variant: str = None):
     """``(env_id, task_config, algo_config)`` of the committed ``algo`` model
-    ('ppo' or 'sac') of ``system`` ('cartpole', 'quadrotor_2D' or
-    'quadrotor_3D') in its stabilization task."""
-    return (SYSTEMS[system], _load(f'{system}_stab')['task_config'],
-            _load(f'{algo}_{system}')['algo_config'])
+    ('ppo', 'sac' or 'safe_explorer_ppo') of ``system`` ('cartpole',
+    'quadrotor_2D' or 'quadrotor_3D') in its stabilization task; ``variant``
+    names another config of the algorithm ('pretrain')."""
+    spec = _load(f'{algo}_{system}' + (f'_{variant}' if variant else ''))
+    task = {**_load(f'{system}_stab')['task_config'], **spec.get('task_config', {})}
+    return SYSTEMS[system], task, spec['algo_config']

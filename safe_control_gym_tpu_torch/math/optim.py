@@ -22,6 +22,9 @@ actor step, the optimizer state included). ``torch.optim.Adam`` and
 
     state = adam_init(params)                       # params: a list of tensors
     params, state = clip_adam_step(params, grads, state, lr=3e-4, max_norm=0.5)
+
+``adam_step`` is plain ``optax.adam(lr)`` with no clip (SAC's and DDPG's
+optimizers), and ``polyak`` their soft target update.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from typing import Dict, List
 import torch
 
 __all__ = ['B1', 'B2', 'EPS', 'tree_leaves', 'tree_unflatten', 'adam_init', 'global_norm',
-           'clip_by_global_norm', 'adam_update', 'clip_adam_step', 'select']
+           'clip_by_global_norm', 'adam_update', 'adam_step', 'clip_adam_step', 'select',
+           'polyak']
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -81,22 +85,42 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torc
 
 
 def adam_update(grads: List[torch.Tensor], state: Dict, lr: float):
-    """``(updates, new_state)``: the steps to add to the parameters."""
-    mu = [(1 - B1) * g + B1 * m for g, m in zip(grads, state['mu'])]
-    nu = [(1 - B2) * (g * g) + B2 * v for g, v in zip(grads, state['nu'])]
+    """``(updates, new_state)``: the steps to add to the parameters. Each
+    line is one ``torch._foreach`` op over all the leaves (a few kernels on
+    the card, not one a leaf), with the per-leaf formulas' roundings."""
+    grads = list(grads)
+    mu = list(torch._foreach_mul(grads, 1 - B1))
+    torch._foreach_add_(mu, torch._foreach_mul(state['mu'], B1))
+    nu = list(torch._foreach_mul(grads, grads))
+    torch._foreach_mul_(nu, 1 - B2)
+    torch._foreach_add_(nu, torch._foreach_mul(state['nu'], B2))
     count = state['count'] + 1
     t = count.to(torch.float32)
-    c1 = 1 - torch.pow(torch.tensor(B1, dtype=torch.float32, device=t.device), t)
-    c2 = 1 - torch.pow(torch.tensor(B2, dtype=torch.float32, device=t.device), t)
-    updates = [-lr * ((m / c1) / (torch.sqrt(v / c2) + EPS)) for m, v in zip(mu, nu)]
+    # A Python base: a tensor made from it on the card would be a host copy,
+    # which synchronizes the stream.
+    c1 = 1 - torch.pow(B1, t)
+    c2 = 1 - torch.pow(B2, t)
+    denom = torch._foreach_div(nu, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, EPS)
+    updates = list(torch._foreach_div(mu, c1))
+    torch._foreach_div_(updates, denom)
+    torch._foreach_mul_(updates, -lr)
     return updates, {'count': count, 'mu': mu, 'nu': nu}
+
+
+def adam_step(params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict, lr: float):
+    """One step of ``optax.adam(lr)``: ``(new_params, new_state)``, the new
+    parameters detached from any graph."""
+    updates, state = adam_update(grads, state, lr)
+    return list(torch._foreach_add([p.detach() for p in params], updates)), state
 
 
 def clip_adam_step(params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
                    lr: float, max_norm: float):
     """One step of the chain: ``(new_params, new_state)``."""
     updates, state = adam_update(clip_by_global_norm(grads, max_norm), state, lr)
-    return [p + u for p, u in zip(params, updates)], state
+    return list(torch._foreach_add(params, updates)), state
 
 
 def select(cond: torch.Tensor, new, old):
@@ -107,3 +131,11 @@ def select(cond: torch.Tensor, new, old):
     if isinstance(new, list):
         return [torch.where(cond, n, o) for n, o in zip(new, old)]
     return torch.where(cond, new, old)
+
+
+def polyak(target, source, tau: float):
+    """``(1 - tau) * target + tau * source``, leaf by leaf over two pytrees of
+    one shape (a soft target update)."""
+    out = list(torch._foreach_mul(tree_leaves(target), 1 - tau))
+    torch._foreach_add_(out, torch._foreach_mul(tree_leaves(source), tau))
+    return tree_unflatten(target, out)

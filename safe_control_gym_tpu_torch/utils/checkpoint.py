@@ -1,9 +1,11 @@
 """Load the JAX package's RL checkpoints without the JAX stack, and write the port's own.
 
 The checkpoints under ``examples/rl/models/`` are pickles written by the JAX
-package's ``PPO.save``, ``SAC.save`` and ``DDPG.save``: dicts of numpy arrays,
-but with optax optimizer states and, in the PPO files, the saved vectorized
-env's ``EnvState`` and dynamics parameters inside. A plain ``pickle.load``
+package's ``PPO.save``, ``SAC.save``, ``DDPG.save`` and
+``SafeExplorerPPO.save`` (RARL's and RAP's are alike): dicts of numpy
+arrays, but with optax optimizer states and, in training checkpoints, the
+saved vectorized env's ``EnvState``, dynamics parameters and the off-policy
+replay ring inside. A plain ``pickle.load``
 would import optax and the JAX package. ``CheckpointUnpickler`` resolves only:
 
 * numpy's array reconstructors and ``dtype``, from ``numpy._core`` (numpy >= 2,
@@ -67,6 +69,7 @@ _STAND_INS = {(mod, name): _stand_in(f'{mod}.{name}', fields) for mod, name, fie
     ('optax._src.base', 'EmptyState', ()),
     ('optax._src.transform', 'ScaleByAdamState', ('count', 'mu', 'nu')),
     ('safe_control_gym_tpu.envs.benchmark_env', 'EnvState', ()),
+    ('safe_control_gym_tpu.controllers.off_policy_utils', 'ReplayState', ()),
     ('safe_control_gym_tpu.envs.dynamics', 'CartPoleParams', ()),
     ('safe_control_gym_tpu.envs.dynamics', 'QuadParams', ()),
     ('safe_control_gym_tpu.math.normalization', 'NormalizerState', ()),
@@ -120,15 +123,15 @@ def plain(obj):
 
 
 def load_checkpoint(path) -> dict:
-    """Read a JAX package checkpoint of PPO, SAC or DDPG.
+    """Read a checkpoint of an RL controller (the JAX package's or the port's).
 
     Returns ``params`` (the agent's parameter pytree: dicts and lists of numpy
-    arrays), ``obs_norm_state`` (a dict of ``mean``, ``var`` and ``count``, or
-    None) and ``raw`` (everything the file holds, with stand-ins in place of
-    the optax and JAX package objects)."""
+    arrays; None in a file without an agent), ``obs_norm_state`` (a dict of
+    ``mean``, ``var`` and ``count``, or None) and ``raw`` (everything the file
+    holds, with stand-ins in place of the optax and JAX package objects)."""
     with open(path, 'rb') as f:
         raw = CheckpointUnpickler(f).load()
-    return {'params': raw['agent']['params'],
+    return {'params': raw.get('agent', {}).get('params'),
             'obs_norm_state': plain(raw.get('obs_norm_state')),
             'raw': raw}
 

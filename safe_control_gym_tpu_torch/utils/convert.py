@@ -4,8 +4,9 @@ The tests start both packages from one state this way. A JAX ``EnvState`` of a
 batch is passed as a dict of numpy arrays (``state``, ``ctrl_step``, the
 ``dyn_params`` fields as a dict, ``dist_obs``, ``dist_act``, ``dist_dyn``); its
 PRNG ``key`` has no counterpart (the port takes ``torch.Generator``\\ s) and is
-ignored, as are the adversary buffers, which must be unset. The parameter
-type follows the fields: ``mass`` makes ``QuadParams``, else ``CartPoleParams``.
+ignored; the adversary buffers (``adv_action``, ``adv_valid``) carry across.
+The parameter type follows the fields: ``mass`` makes ``QuadParams``, else
+``CartPoleParams``.
 
 An RL actor's parameters (``mlp_init`` layout, a list of ``{'w', 'b'}``) and a
 frozen observation normalizer carry across as copies. PPO's training state
@@ -13,7 +14,9 @@ does too: the return normalizer (``RetState``) and the optax Adam state of
 each optimizer (``count``, ``mu``, ``nu``; read from a JAX checkpoint by
 ``utils/checkpoint.py``'s unpickler, after ``plain``). The ``*_to_numpy``
 functions give the port's states back as numpy, the layout of the port's
-own checkpoints.
+own checkpoints. So do the off-policy learners' replay rings
+(``replay_from_numpy``) and any parameter pytree of dicts and lists
+(``tree_from_numpy``, ``tree_to_numpy``).
 """
 
 from __future__ import annotations
@@ -26,13 +29,14 @@ import torch
 from safe_control_gym_tpu_torch.envs.benchmark_env import EnvState
 from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams, QuadParams
 from safe_control_gym_tpu_torch.math.normalization import NormalizerState, RetState
-from safe_control_gym_tpu_torch.math.optim import tree_leaves
+from safe_control_gym_tpu_torch.math.optim import tree_leaves, tree_unflatten
 from safe_control_gym_tpu_torch.utils.device import resolve_device
 
 __all__ = ['cartpole_params_from_numpy', 'quad_params_from_numpy',
            'env_state_from_numpy', 'env_state_to_numpy', 'mlp_params_from_numpy',
            'normalizer_from_numpy', 'normalizer_to_numpy', 'ret_state_from_numpy',
-           'adam_state_from_numpy', 'adam_state_to_numpy']
+           'adam_state_from_numpy', 'adam_state_to_numpy', 'tree_from_numpy', 'tree_to_numpy',
+           'replay_from_numpy', 'replay_to_numpy']
 
 
 def _params_from_numpy(cls, d, device):
@@ -65,9 +69,6 @@ def env_state_from_numpy(d, device='cuda') -> EnvState:
     """The port's batched ``EnvState`` from a JAX ``EnvState`` given as a dict
     of numpy arrays."""
     dev = resolve_device(device)
-    if np.any(np.asarray(d.get('adv_valid', False))):
-        raise NotImplementedError('adversary actions come with the RARL/RAP '
-                                  'slice of the port')
     # torch.tensor copies: arrays read from JAX are not writable.
     state = torch.tensor(np.asarray(d['state'], np.float32), device=dev)
     n = state.shape[0]
@@ -80,7 +81,11 @@ def env_state_from_numpy(d, device='cuda') -> EnvState:
         ctrl_step=torch.tensor(np.asarray(d['ctrl_step'], np.int32), device=dev),
         dyn_params=params(d['dyn_params'], dev),
         dist_obs=f32('dist_obs'), dist_act=f32('dist_act'),
-        dist_dyn=f32('dist_dyn'))
+        dist_dyn=f32('dist_dyn'),
+        adv_action=(f32('adv_action') if 'adv_action' in d
+                    else torch.zeros((n, 0), device=dev)),
+        adv_valid=torch.tensor(np.asarray(d.get('adv_valid', np.zeros(n, bool)), bool)
+                               .reshape(n), device=dev))
 
 
 def mlp_params_from_numpy(layers, device='cuda'):
@@ -166,3 +171,33 @@ def env_state_to_numpy(est: EnvState) -> dict:
     d['dyn_params'] = {f.name: getattr(est.dyn_params, f.name).cpu().numpy()
                        for f in fields(est.dyn_params)}
     return d
+
+
+def tree_from_numpy(tree, device='cuda'):
+    """A pytree of dicts and lists of numpy arrays as float32 tensors."""
+    dev = resolve_device(device)
+    return tree_unflatten(tree, [torch.tensor(np.asarray(a, np.float32), device=dev)
+                                 for a in tree_leaves(tree)])
+
+
+def tree_to_numpy(tree):
+    """A pytree of dicts and lists of tensors as numpy arrays."""
+    return tree_unflatten(tree, [t.detach().cpu().numpy() for t in tree_leaves(tree)])
+
+
+def replay_from_numpy(d, device='cuda'):
+    """A ``ReplayState`` from a dict of numpy arrays (``data``, ``ptr``,
+    ``count``): the port's checkpoint layout, or the JAX package's ring as
+    ``checkpoint.plain`` gives it."""
+    from safe_control_gym_tpu_torch.controllers.off_policy_utils import ReplayState
+    dev = resolve_device(device)
+    return ReplayState(
+        data={k: torch.tensor(np.asarray(v, np.float32), device=dev) for k, v in d['data'].items()},
+        ptr=torch.tensor(int(np.asarray(d['ptr'])), dtype=torch.int64, device=dev),
+        count=torch.tensor(int(np.asarray(d['count'])), dtype=torch.int64, device=dev))
+
+
+def replay_to_numpy(state) -> dict:
+    """A ``ReplayState`` as the dict of numpy arrays ``replay_from_numpy`` takes."""
+    return {'data': {k: v.cpu().numpy() for k, v in state.data.items()},
+            'ptr': state.ptr.cpu().numpy(), 'count': state.count.cpu().numpy()}

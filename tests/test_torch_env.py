@@ -240,12 +240,14 @@ def test_converter_carries_the_jax_state():
     with pytest.raises(NotImplementedError):
         cartpole_params_from_numpy(dict(d['dyn_params'], pole_mass=np.array([0.1, 0.2])),
                                    'cpu')
-    with pytest.raises(NotImplementedError):
-        env_state_from_numpy(dict(d, adv_valid=np.ones(8, bool)), 'cpu')
+    # The adversary buffers carry across.
+    adv = np.random.default_rng(1).normal(size=(8, 4)).astype(np.float32)
+    est = env_state_from_numpy(dict(d, adv_action=adv, adv_valid=np.ones(8, bool)), 'cpu')
+    np.testing.assert_array_equal(est.adv_action.numpy(), adv)
+    assert est.adv_valid.dtype == torch.bool and bool(est.adv_valid.all())
 
 
-@pytest.mark.parametrize('over', [dict(randomized_inertial_prop=True),
-                                  dict(adversary_disturbance='action')])
+@pytest.mark.parametrize('over', [dict(randomized_inertial_prop=True), dict(gui=True)])
 def test_out_of_slice_configs_raise(over):
     with pytest.raises(NotImplementedError):
         tmake('cartpole', device='cpu', **dict(BASE, **over))

@@ -45,13 +45,14 @@ METRICS_CLOSE = ('average_return', 'average_rmse', 'rmse', 'rmse_std', 'worst_ca
 @pytest.fixture(scope='module', autouse=True)
 def _one_torch_thread():
     # The port's small CPU solves run on one thread: torch's pool contends
-    # with JAX's and with the other test workers (the batch test took 194 s
-    # on eight threads in the parallel suite, 4 s alone on one). The count
-    # is not set back: with torch's MKL, raising the count again after
-    # lowering it makes the batched LU of ops/qp.py's polish
-    # (torch.linalg.lu_factor_ex) fail inside MKL (an SLASWP parameter
-    # error) and hang, so a later file's MPC solve would never return.
+    # with JAX's and with the other test workers (under pytest-xdist beside
+    # five other workers, torch's default pool made tests/test_torch_gp_mpc.py
+    # take 778 s against about 60 s alone). The prior count comes back at the
+    # end of the module, so that the files a worker runs next keep theirs.
+    prior = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
 
 
 def _env_funcs(**task):

@@ -134,15 +134,11 @@ def test_gates_refuse_what_neither_path_reproduces(tmp_path):
         tctrl.evaluate_fused(batch=4, n_steps=3, stochastic=True)
     with pytest.raises(NotImplementedError, match='item 14'):
         tctrl.evaluate_fused(batch=4, n_steps=3, mesh=object())
-    with pytest.raises(NotImplementedError, match='item 9'):
-        tctrl.learn()
     tctrl.close()
     physical = dict(_task_config('cartpole'), normalized_rl_action_space=False)
     ddpg = tmake('ddpg', functools.partial(tmake, 'cartpole', device='cpu', **physical))
     with pytest.raises(ValueError, match='normalized action space'):
         ddpg.evaluate_fused(batch=4, n_steps=3)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        ddpg.learn()
     ddpg.close()
     ppo = tmake('ppo', functools.partial(tmake, 'cartpole', device='cpu', **physical))
     res = ppo.evaluate_fused(batch=4, n_steps=3, stochastic=True, n_reps=0)

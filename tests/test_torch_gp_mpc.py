@@ -103,12 +103,15 @@ BOOTSTRAP = dict(randomized_init=True, init_state=None, cost='quadratic',
 
 @pytest.fixture(scope='module', autouse=True)
 def _one_torch_thread():
-    # As tests/test_torch_safety_filters.py: the port's small CPU solves run
-    # on one thread. Under pytest-xdist beside five other workers, torch's
-    # default pool made this file take 778 s (against about 60 s alone).
-    # The count is lowered, never raised: raising it again after lowering it
-    # makes MKL's batched LU of ops/qp.py's polish hang.
+    # The port's small CPU solves run on one thread: torch's pool contends
+    # with JAX's and with the other test workers (under pytest-xdist beside
+    # five other workers, torch's default pool made tests/test_torch_gp_mpc.py
+    # take 778 s against about 60 s alone). The prior count comes back at the
+    # end of the module, so that the files a worker runs next keep theirs.
+    prior = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
 
 
 def _np(a):

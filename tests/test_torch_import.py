@@ -33,7 +33,7 @@ def _imported_roots(path):
             yield node.module.split('.')[0]
 
 
-def test_import_leaves_jax_out_of_sys_modules():
+def test_import_leaves_jax_out_of_sys_modules(tmp_path):
     code = ('import sys, safe_control_gym_tpu_torch\n'
             'import safe_control_gym_tpu_torch.envs.cartpole\n'
             'import safe_control_gym_tpu_torch.envs.quadrotor\n'
@@ -55,6 +55,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import safe_control_gym_tpu_torch.controllers.mpc.mpc_acados\n'
             'import safe_control_gym_tpu_torch.controllers.mpc.gp_utils\n'
             'import safe_control_gym_tpu_torch.controllers.mpc.gp_mpc\n'
+            'import safe_control_gym_tpu_torch.math.schedules\n'
+            'import safe_control_gym_tpu_torch.math.random_processes\n'
+            'import safe_control_gym_tpu_torch.controllers.safe_explorer.safe_ppo\n'
+            'import safe_control_gym_tpu_torch.controllers.rarl.rap\n'
             'from functools import partial\n'
             'from safe_control_gym_tpu_torch.utils.registration import make\n'
             'from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint\n'
@@ -81,8 +85,22 @@ def test_import_leaves_jax_out_of_sys_modules():
             'sf.certify_action_batch(sf.env._nominal_init_state()[None], [[0.0]])\n'
             'make("cbf_nn", partial(make, "cartpole", device="cpu", constraints=box)).load('
             '"examples/cbf/models/cbf_nn_cartpole.pt")\n'
+            'sac = make("sac", partial(make, "cartpole", device="cpu"), hidden_dim=8,'
+            ' max_env_steps=8, warm_up_steps=4, train_interval=4, train_batch_size=4,'
+            ' max_buffer_size=16, output_dir=%r, checkpoint_path="")\n'
+            'sac.reset(); sac.learn()\n'
+            'se = make("safe_explorer_ppo", partial(make, "cartpole", device="cpu",'
+            ' constraints=[{"constraint_form": "abs_bound", "constrained_variable": "state",'
+            ' "bound": [1.5, 2.0, 0.3, 2.0]}]))\n'
+            'se.load("examples/rl/models/safe_explorer_ppo/safe_explorer_ppo_model_cartpole_stab.pt")\n'
+            'rap = make("rap", partial(make, "cartpole", device="cpu",'
+            ' adversary_disturbance="dynamics"), rollout_steps=2, max_env_steps=8,'
+            ' agent_iterations=1, adversary_iterations=1, output_dir=%r,'
+            ' checkpoint_path="")\n'
+            'rap.reset(); rap.learn()\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)\n'
-            'print(bad); sys.exit(1 if bad else 0)' % (FORBIDDEN,))
+            'print(bad); sys.exit(1 if bad else 0)'
+            % (str(tmp_path / 'sac'), str(tmp_path / 'rap'), FORBIDDEN))
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -116,6 +134,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         benchmark_suite.measure_closed_loop_kernel('cartpole', batch=8, n_steps=8)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         make('sac', functools.partial(make, 'cartpole'))
+    for algo in ('ddpg', 'safe_explorer_ppo', 'rarl', 'rap'):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            make(algo, functools.partial(make, 'cartpole', adversary_disturbance='dynamics'))
     for algo in ('lqr', 'ilqr', 'pid', 'mpc', 'linear_mpc', 'mpc_acados', 'gp_mpc',
                  'linear_mpsc', 'cbf', 'cbf_nn'):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
