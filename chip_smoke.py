@@ -3,14 +3,16 @@ kernels, then drive the batched cartpole and quadrotor rollouts, the
 closed-loop evaluation of the committed RL models, PPO training, the
 model-based controllers (LQR, iLQR, PID), the MPC family (MPC, linear MPC,
 MPC_ACADOS), GP-MPC with its batch and the scenario solve, the safety
-filters (linear MPSC, CBF, CBF-NN), SAC and DDPG training, and RARL, RAP
-and SafeExplorerPPO with the env's adversary channel through the port's
-entry points.
+filters (linear MPSC, CBF, CBF-NN), SAC and DDPG training, RARL, RAP and
+SafeExplorerPPO with the env's adversary channel, and the experiment layer
+(train_rl_controller, the vectorized envs, HPO with population PPO) through
+the port's entry points.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety,
-                                            # off_policy, robust alone
-                                            # (comma-separated), no result line
+                                            # off_policy, robust, experiment
+                                            # alone (comma-separated), no
+                                            # result line
 
 Phases, one JSON line each:
   1. card      the card's name and power limit (nvidia-smi);
@@ -79,7 +81,8 @@ Phases, one JSON line each:
                PPO_QUAD_ITERATIONS each, gated on finite losses and K2's or K3's launches; one
                update on a batch of the card's last cartpole rollout, card
                against CPU on the same permutations (params 1e-4); a
-               torch.profiler window over one rollout and one epoch (the
+               torch.profiler window over a T_TRACE-step rollout and one
+               epoch on its batch (the
                device's busy share); every launch counter set to 0 before
                each training part and read after;
  11. control   model-based control through make('ilqr' | 'lqr' | 'pid',
@@ -90,8 +93,8 @@ Phases, one JSON line each:
                inverse of H; then, every launch counter set to 0 before and
                read after, iLQR's solve_batch at B=4096 on
                examples/lqr/batched_ilqr_demo.py's cartpole (T=45, 50
-               substeps) and the committed 2D quad example (its first 3 s,
-               T=180, 4 substeps), 10 iterations each, K1's or K2's launches exactly
+               substeps) and the committed 2D quad example (its first 2 s,
+               T=120, 4 substeps), 10 iterations each, K1's or K2's launches exactly
                10 x T, every card policy's best cost held to a CPU rollout of
                it (rtol 1e-3), the first 64 problems to the port's CPU solve
                of them: on the cartpole all equal (costs, cost curves, gains,
@@ -113,7 +116,7 @@ Phases, one JSON line each:
                make('linear_mpc' | 'mpc' | 'mpc_acados', partial(make, env,
                device='cuda', ...)) -> reset() -> run() on the examples'
                configs at horizon 20: linear MPC on linear_mpc_quadrotor_2D_track
-               (300 steps, K2 at 20 substeps), MPC on mpc_cartpole_stab (3 SQP)
+               (its first 150 of 300 steps, K2 at 20 substeps), MPC on mpc_cartpole_stab (3 SQP)
                and MPC_ACADOS with RTI (the first 20 of 90 steps each, K1 at 50
                substeps), K1's
                or K2's launches exactly the steps, each step gated against the
@@ -134,8 +137,8 @@ Phases, one JSON line each:
                to 0 before and read after, make('gp_mpc', partial(make, env,
                device='cuda', ...)) -> reset() -> learn() -> run():
                gp_mpc_cartpole_stab (horizon 15, 80 samples, 150 Adam steps;
-               the first 20 of its 90 steps) and tests/test_gp_mpc.py's 2D
-               quad (horizon 10, 60 samples, 120 Adam steps, the first 40 of
+               the first GP_CARTPOLE_STEPS of its 90 steps) and tests/test_gp_mpc.py's 2D
+               quad (horizon 10, 60 samples, 120 Adam steps, the first 30 of
                its 60 steps);
                each loop's GPs against the port's CPU GPs trained on the
                card's data, the fused tightening against the host reference
@@ -143,7 +146,7 @@ Phases, one JSON line each:
                fed the card's observation, warm start and GP data (phase
                mpc's gate, capped-row counts equal), the replay through a
                pallas_physics=False env, K1's or K2's launches exactly the
-               samples and the steps; 20 cartpole steps with online learning,
+               samples and the steps; GP_ONLINE_STEPS cartpole steps with online learning,
                card against CPU; select_action_batch at B_GP (2 passes) on
                examples/mpc/batched_gp_mpc_demo.py's problem (seconds,
                solves/s, peak memory, a torch.profiler window), every answer
@@ -162,7 +165,8 @@ Phases, one JSON line each:
                BASELINE.json's fifth config (SAC on the 2D quad, the committed
                model, uncertified, then certified by linear MPSC loaded from
                the committed P; the 250-step episode uncertified, its first
-               50 steps certified, K2's launches exactly the steps); learn()
+               CONFIG5_CERTIFIED_STEPS steps certified, K2's launches exactly
+               the steps); learn()
                on examples/mpsc/batched_certification_demo.py's cartpole
                (n_samples 120: collection, descent and search timed;
                its P's blocks certified in float64 and its log det against
@@ -170,7 +174,7 @@ Phases, one JSON line each:
                certify_action_batch at B_SAFETY on the demo's states and
                actions (seconds, certifications/s, ADMM iterations, peak
                memory, a torch.profiler window) and an LQR loop certified by
-               the learned filter; CBF and CBF-NN (the committed model) on
+               the learned filter (its first CERT_LQR_STEPS steps); CBF and CBF-NN (the committed model) on
                examples/cbf's cartpole (50 Hz, one substep) with LQR, a loop
                and a batch each; every loop's certifications against the
                port's CPU filter fed the same state, action and warm state,
@@ -213,15 +217,41 @@ Phases, one JSON line each:
                model likewise (finite actions and return, K2 a step), then
                the committed pretrain config cut to SE_EPOCHS constraint
                epochs and one PPO iteration (finite losses, K1's launches);
- 17. kernels   one entry per kernel with its launches, error, times and bound
+ 17. experiment  the examples' entry points, every launch counter set to 0
+               before each part and read after: train_rl_controller.train()
+               on examples/rl's ppo_cartpole overrides with max_env_steps cut
+               to EXP_TRAIN_STEPS (two iterations of 64 x 150), gated on the
+               merged config against the committed JSON copies, K1's launches
+               (2 x 150), finite losses, model_latest.pt into a fresh
+               controller acting identically, and --restore giving the
+               config back; make_vec_envs (TorchVecEnv) on the committed stab
+               tasks of the three systems at B_VEC x T_VEC random actions,
+               held to FuncEnv.step_autoreset on the same generator (0.0),
+               one K1/K2/K3 launch a step, VecRecordEpisodeStatistics'
+               episodes equal to the done flags, ctrl steps/s; HPO on
+               examples/hpo's PPO config cut to two iterations of 16 x 100:
+               two sequential trials (trials.csv, K1's launches), then one
+               vectorized round of HPO_TRIALS trials x HPO_REPS repetitions
+               as one population (K1's launches 2 x 100 + 251 for the whole
+               round, the round's seconds and lane-trainings a second); the
+               population's update card against a CPU copy (its first epoch
+               within POP_UPDATE_ATOL; the whole update within it on every
+               lane the CPU repeats to POP_REPEATABLE under a 1e-7 change of
+               the batch, at least POP_REPEATABLE_SHARE of them; the accepted
+               actor steps equal) and lane POP_LANE against a one-lane population
+               fed the same draws, after the first iteration (parameters
+               within POP_UPDATE_ATOL, evaluation returns within
+               POP_LANE_RTOL);
+ 18. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
                control, mpc_launches, mpc_shape and grad_max_abs_err, from
                phase mpc, gp_mpc_launches and gp_mpc_shape, from phase
                gp_mpc, safety_launches and safety_shape, from phase safety,
                off_policy_launches and off_policy_shape, from phase
-               off_policy, and robust_launches and robust_shape, from phase
-               robust; K4's policy row also with off_policy_launches, the
+               off_policy, robust_launches and robust_shape, from phase
+               robust, and experiment_launches and experiment_shape, from
+               phase experiment; K4's policy row also with off_policy_launches, the
                trained actors' evaluate_fused launches).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
@@ -255,16 +285,16 @@ B = 4096
 B_RAGGED = B + 13      # the policy mode's last tile of 32 envs partly filled
 B_BIG = 65536          # the per-step kernels' large-batch time
 CHUNKED_WIDTHS = (384, 1000)   # an actor whose H2 the policy kernel runs in chunks
-T_CHUNKED = 40
+T_CHUNKED = 30
 N_SUB, DT = 20, 1e-3
 # K4/K5 against the plain version, at lengths cut for the script's time; the
 # cartpole's hover replay runs past its 250-step episode, to the time-limit
 # reset (the other cases' episodes end by their bounds).
-T_CHECK = {'cartpole': 75, 'quadrotor': 40, 'quadrotor_3D': 40}
+T_CHECK = {'cartpole': 50, 'quadrotor': 30, 'quadrotor_3D': 30}
 T_CHECK_HOVER = {'cartpole': 300}
 # The policy mode's cases other than the committed models, likewise.
-T_POLICY_CHECK = {'cartpole': 75, 'quadrotor': 40, 'quadrotor_3D': 40}
-T_PER_STEP = 512       # the per-step path of the main path
+T_POLICY_CHECK = {'cartpole': 50, 'quadrotor': 30, 'quadrotor_3D': 30}
+T_PER_STEP = 256       # the per-step path of the main path
 T_ROLLOUT = 131072     # the whole-rollout path of the main path
 T_WELCH = 1024
 T_CLOSED = 500         # the committed models' closed-loop rows (two episodes)
@@ -272,6 +302,7 @@ T_COMMITTED = 260      # the committed models against the plain version: past th
                        # 250-step episode, so every env draws a fresh state
 T_WELCH_CLOSED = 1000
 PPO_QUAD_ITERATIONS = 1   # training iterations of the 2D and 3D configs
+T_TRACE = 50              # the profiled PPO rollout's steps (150, a whole one, before PR 15)
 # The cartpole training's eval bar: the solved mark, deterministic eval return
 # 200 (PERFORMANCE.md:354-356). The JAX package's PPO, trained on the CPU with
 # the same config and seed 0, evaluates to 249.28 over 10 episodes
@@ -301,9 +332,9 @@ CONTROL_ATOL = 1e-4
 # change, and holds every card policy's cost to a CPU rollout of it.
 CONTROL_AGREE_SHARE = 0.75
 CONTROL_PERTURB = 1e-6
-# The 2D quad's iLQR solve runs the example's first 3 s (T=180 at 60 Hz) of
-# its 6 s episode (T=360), for the script's time.
-ILQR_QUAD_EPISODE_SEC = 3
+# The 2D quad's iLQR solve runs the example's first 2 s (T=120 at 60 Hz) of
+# its 6 s episode (T=360), for the script's time (3 s before PR 15).
+ILQR_QUAD_EPISODE_SEC = 2
 # examples/lqr/batched_ilqr_demo.py's cartpole problem (T=45, 50 substeps).
 ILQR_DEMO_TASK = dict(seed=0, cost='quadratic', task='stabilization',
                       task_info={'stabilization_goal': [0.5, 0.0],
@@ -344,6 +375,7 @@ MPC_DEMO_ALGO = dict(q_mpc=[1], r_mpc=[0.1], horizon=20, sqp_iters=3)
 # The cartpole MPC and MPC_ACADOS loops run the first 20 of their 90-step
 # episode, for the script's time.
 MPC_CARTPOLE_STEPS = 20
+MPC_QUAD_STEPS = 150      # the first 150 of linear_mpc_quadrotor_2D_track's 300 steps
 # The gradient case: K1-K3 backward through the kernel against autograd through
 # the plain twin on the same card inputs (relative to the gradient's largest
 # entry), and examples/differentiable_sim_demo.py's cost over GRAD_T actions,
@@ -384,9 +416,9 @@ GRAD_DEMO = dict(seed=0, ctrl_freq=15, pyb_freq=750, init_state={'init_theta': 0
 GP_ATOL = 1e-4
 GP_POINTS = 64
 GP_TIGHTEN_RTOL = 1e-5
-GP_CARTPOLE_STEPS = 20          # the first 20 of gp_mpc_cartpole_stab's 90 steps
-GP_QUAD_STEPS = 40              # the first 40 of the 2D quad's 60 steps
-GP_ONLINE_STEPS = 20
+GP_CARTPOLE_STEPS = 15          # the first 15 of gp_mpc_cartpole_stab's 90 steps
+GP_QUAD_STEPS = 30              # the first 30 of the 2D quad's 60 steps
+GP_ONLINE_STEPS = 15
 B_GP = 4096
 GP_GATE_ROWS = 64
 GP_PASSES = 2
@@ -500,14 +532,15 @@ RPI_PERTURB = 1e-7
 # of 1000; its eval bar is tests/test_rl_offpolicy.py:38's (random actions
 # return about 20). SAC on the committed 2D and 3D configs for
 # OFF_POLICY_QUAD_ITERATIONS iterations past the warm-up; DDPG with
-# tests/test_rl_offpolicy.py:52-63's settings; one update of each at full
+# tests/test_rl_offpolicy.py:52-63's settings (max_env_steps cut from 4000
+# to 2000); one update of each at full
 # width card against CPU (OFF_POLICY_UPDATE_ATOL); the trained actors through
 # evaluate_fused at B (T_OFF_POLICY_EVAL steps) and K4's policy mode against
 # its plain version over T_OFF_POLICY_CHECK steps (1e-4, as phase k4_policy).
-OFF_POLICY_STEPS = 5000
+OFF_POLICY_STEPS = 4000
 SAC_EVAL_BAR = 25.0
-OFF_POLICY_QUAD_ITERATIONS = 2
-DDPG_TEST = dict(max_env_steps=4000, warm_up_steps=1000, rollout_batch_size=8,
+OFF_POLICY_QUAD_ITERATIONS = 1
+DDPG_TEST = dict(max_env_steps=2000, warm_up_steps=1000, rollout_batch_size=8,
                  train_interval=200, train_batch_size=64, max_buffer_size=20000,
                  actor_lr=0.0003)
 OFF_POLICY_UPDATE_ATOL = 1e-4
@@ -534,6 +567,43 @@ ROBUST_REPLAY = 64
 ROBUST_QUAD_T = 8
 SE_EVAL_LENGTH = 240
 SE_EPOCHS = 2
+
+# Phase experiment: the examples' entry points. train() on ppo_cartpole cut
+# to two iterations of 64 x 150; make_vec_envs at B_VEC over T_VEC random
+# actions; HPO on examples/hpo's PPO config cut to two iterations of 16 x
+# 100: two sequential trials, then one vectorized round of HPO_TRIALS trials
+# x HPO_REPS repetitions.
+EXP_RL_OVERRIDES = ['examples/rl/config_overrides/cartpole/cartpole_stab.yaml',
+                    'examples/rl/config_overrides/cartpole/ppo_cartpole.yaml']
+EXP_TRAIN_STEPS = 19200
+B_VEC = 4096
+T_VEC = 200
+EXP_HPO_OVERRIDES = ['examples/hpo/config_overrides/ppo_cartpole_hpo.yaml']
+EXP_HPO_STEPS = 3200
+HPO_TRIALS, HPO_REPS, HPO_N_EVAL = 8, 2, 5
+# The vectorized round searches the per-lane hyperparameters only, so that
+# its trials form one population.
+HPO_VECTOR_SPACE = ['actor_lr', 'critic_lr', 'entropy_coef', 'gamma', 'gae_lambda',
+                    'clip_param', 'target_kl']
+# The population's update, card against CPU: its first epoch within
+# POP_UPDATE_ATOL on every lane; the whole update (10 epochs of 25 Adam
+# steps) within POP_UPDATE_ATOL on every lane the CPU repeats to within
+# POP_REPEATABLE under a 1e-7 change of the batch, at least POP_REPEATABLE_SHARE
+# of the lanes; the accepted actor steps equal on every lane. Adam's
+# normalized steps amplify rounding where a lane's gradients are near zero:
+# the CPU's own whole update then moves by up to 5e-3 under such a change,
+# so such a lane has no 1e-4 answer to hold the card to.
+POP_UPDATE_ATOL = 1e-4
+POP_REPEATABLE = 1e-5
+POP_REPEATABLE_SHARE = 0.5
+POP_LANE = 3
+# Lane 3 of the population against a one-lane population fed the same
+# draws, after the first iteration: the same float32 math, but cuBLAS may
+# pick another algorithm for a batch of 1 matrix than for 16, so the
+# products can round apart; the parameters are held to POP_UPDATE_ATOL (lane
+# 3's update is one the CPU repeats to 1e-5), the returns of their
+# evaluation to POP_LANE_RTOL of their size.
+POP_LANE_RTOL = 1e-3
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -908,7 +978,7 @@ def main_path(dev, smi):
         if not bs.kernel_covers(system, constrained, tracking, device=dev):
             raise RuntimeError(f'the rollout kernel does not cover the {system} config')
         su, sps, ex = bs.measure_rollout_kernel(system, constrained, batch=B,
-                                                n_steps=T_ROLLOUT, n_reps=3,
+                                                n_steps=T_ROLLOUT, n_reps=2,
                                                 tracking=tracking, device=dev)
         rows[f'rollout {system} constrained={constrained} tracking={tracking}'] = dict(
             path=f'whole-rollout ({ROLLOUT[system]["id"]})', system=system, batch=B,
@@ -1359,9 +1429,11 @@ def _profiled(fn, cpu_activity=True):
 
 
 def _training_trace(ctrl):
-    """One rollout and one epoch of minibatch steps of ``ctrl`` under the
-    profiler (after a rollout to take the batch from): host and device-busy
-    seconds of each, and kernels a rollout step and a minibatch."""
+    """A rollout of T_TRACE steps and one epoch of minibatch steps on its
+    batch, each under the profiler (after a rollout to take the batch from):
+    host and device-busy seconds of each, and kernels a rollout step and a
+    minibatch."""
+    T, ctrl.T = ctrl.T, T_TRACE
     batch, _ = ctrl.rollout()
     torch.cuda.synchronize()
     _, num_mb, _ = ctrl.agent.minibatch_plan(batch['obs'].shape[0])
@@ -1371,13 +1443,15 @@ def _training_trace(ctrl):
     u_wall, u_busy, u_kernels = _profiled(
         lambda: ctrl.agent.update_tensors(batch, ctrl.gen), cpu_activity=False)
     ctrl.agent.opt_epochs = epochs
-    return dict(window=f'one rollout (T={ctrl.T}) and one epoch ({num_mb} minibatches), '
-                       'each under torch.profiler',
-                rollout_s=r_wall, rollout_device_busy_s=r_busy, rollout_kernels=r_kernels,
-                kernels_per_step=r_kernels / ctrl.T, epoch_s=u_wall,
-                epoch_device_busy_s=u_busy, epoch_kernels=u_kernels,
-                kernels_per_minibatch=u_kernels / num_mb,
-                device_busy_share=(r_busy + u_busy) / (r_wall + u_wall))
+    row = dict(window=f'one rollout (T={ctrl.T}) and one epoch ({num_mb} minibatches), '
+                      'each under torch.profiler',
+               rollout_s=r_wall, rollout_device_busy_s=r_busy, rollout_kernels=r_kernels,
+               kernels_per_step=r_kernels / ctrl.T, epoch_s=u_wall,
+               epoch_device_busy_s=u_busy, epoch_kernels=u_kernels,
+               kernels_per_minibatch=u_kernels / num_mb,
+               device_busy_share=(r_busy + u_busy) / (r_wall + u_wall))
+    ctrl.T = T
+    return row
 
 
 def ppo_train(dev, smi):
@@ -1697,7 +1771,7 @@ def control(dev, smi):
     # torch.profiler over one more cartpole solve: the device's busy share.
     ctrl = ctrls['cartpole']
     x0s = np.repeat(ctrl.env._nominal_init_state()[None], B_CONTROL, axis=0)
-    wall, busy, n_kernels = _profiled(lambda: ctrl.solve_batch(x0s))
+    wall, busy, n_kernels = _profiled(lambda: ctrl.solve_batch(x0s), cpu_activity=False)
     rows['trace'] = dict(window=f'one cartpole solve_batch, B={B_CONTROL}, under torch.profiler',
                          seconds=wall, device_busy_s=busy, kernels=n_kernels,
                          device_busy_share=busy / wall, card=smi)
@@ -1887,7 +1961,7 @@ def mpc(dev, smi):
     rows = {'gradient': _grad_case(dev),
             'checks': _bit_checks(dev, 'mpc', [('cartpole', 1, 50, 1.0 / 750),
                                                ('quadrotor', 1, 20, 1.0 / 1000)])}
-    loops = [('linear_mpc', 'quadrotor_2D', 'track', 'quad2d_advance', None),
+    loops = [('linear_mpc', 'quadrotor_2D', 'track', 'quad2d_advance', MPC_QUAD_STEPS),
              ('mpc', 'cartpole', 'stab', 'cartpole_advance', MPC_CARTPOLE_STEPS),
              ('mpc_acados', 'cartpole', 'stab', 'cartpole_advance', MPC_CARTPOLE_STEPS)]
     ctrls = {}
@@ -2329,13 +2403,16 @@ class _Captured(Exception):
     """Raised by a filter's patched ``_solve`` once it has kept its inputs."""
 
 
-# Config 5's certified loop runs the first 50 of its 250-step episode, for
-# the script's time: every certification of the committed P is infeasible
-# and takes the ladder's last rung, at every step alike.
-CONFIG5_CERTIFIED_STEPS = 50
-# The CBF and CBF-NN loops run the first 150 steps of their episode (225
-# steps before PR 14), for the script's time.
-CBF_STEPS = 150
+# Config 5's certified loop runs the first 30 of its 250-step episode (50 in
+# PR 14), for the script's time: every certification of the committed P is
+# infeasible and takes the ladder's last rung, at every step alike.
+CONFIG5_CERTIFIED_STEPS = 30
+# The LQR loop certified by the cartpole's learned filter runs the first 45
+# of its 90 steps, for the script's time.
+CERT_LQR_STEPS = 45
+# The CBF and CBF-NN loops run the first 100 steps of their episode (150
+# in PR 14, 225 before), for the script's time.
+CBF_STEPS = 100
 
 # Phase safety's wall seconds by step, summed over the phase's parts.
 _SAFETY_SECONDS = {}
@@ -2803,7 +2880,7 @@ def _cartpole_certified(card, dev, smi):
     ctrl = make('lqr', env_func, q_lqr=[1], r_lqr=[0.1])
     log = []
     with _timed('loops'):
-        data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log)
+        data, metrics, wall, moved = _evaluate(env_func, ctrl, card, log, CERT_LQR_STEPS)
     row = _run_row(data, metrics, wall, moved, log, card.horizon)
     _checked_loop(row, card, cpu, log, 'cartpole', CERT_DEMO_TASK, dev, data)
     rows['lqr loop'] = row
@@ -3338,6 +3415,318 @@ def robust(dev, smi):
     return launches, rows
 
 
+def _exp_train(dev, out_dir, smi):
+    """train() of ppo_cartpole cut to two iterations: its config against the
+    committed JSON copy, K1's launches, finite losses, model_latest.pt into a
+    fresh controller, --restore."""
+    from safe_control_gym_tpu_torch.experiments import train_rl_controller as trc
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils import yaml_io
+    from safe_control_gym_tpu_torch.utils.configuration import ConfigFactory
+    from safe_control_gym_tpu_torch.utils.registration import make
+    from safe_control_gym_tpu_torch.utils.utils import unmunchify
+    argv = (['--algo', 'ppo', '--task', 'cartpole', '--overrides'] + EXP_RL_OVERRIDES
+            + ['--kv_overrides', f'algo_config.max_env_steps={EXP_TRAIN_STEPS}', '--seed', '0',
+               '--device', str(dev.type), '--output_dir', out_dir])
+    config = ConfigFactory().merge(argv=argv)
+    _, task_ref, algo_ref = eval_config('ppo', 'cartpole')
+    differ = sorted([f'task_config.{k}' for k, v in task_ref.items()
+                     if config.task_config.get(k) != v]
+                    + [f'algo_config.{k}' for k, v in algo_ref.items()
+                       if config.algo_config.get(k) != v and k != 'max_env_steps'])
+    made = []
+
+    def recording_make(idx, *args, **kwargs):
+        obj = make(idx, *args, **kwargs)
+        made.append(obj)
+        return obj
+
+    trc.make = recording_make
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        run_dir = trc.train(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        trc.make = make
+    ctrl = made[-1]
+    iterations = ctrl.total_steps // (ctrl.N * ctrl.T)
+    saved = yaml_io.load_file(os.path.join(run_dir, 'config.yaml'))
+    fresh = make('ppo', functools.partial(make, 'cartpole', device=dev,
+                                          **saved['task_config']),
+                 output_dir=os.path.join(out_dir, 'fresh'), **saved['algo_config'])
+    fresh.load(os.path.join(run_dir, 'model_latest.pt'))
+    obs = np.random.default_rng(0).normal(0.0, 0.2, (B, 4)).astype(np.float32)
+    same_actions = bool(np.array_equal(fresh.select_action(obs), ctrl.select_action(obs)))
+    restored = unmunchify(ConfigFactory().merge(argv=['--restore', run_dir]))
+    restore_ok = restored.pop('restore') == run_dir and saved.pop('restore') is None \
+        and restored == saved
+    last = ctrl.last_results
+    losses = {k: last[k] for k in ('policy_loss', 'value_loss', 'entropy_loss', 'approx_kl')}
+    row = dict(envs=ctrl.N, T=ctrl.T, iterations=iterations, total_steps=ctrl.total_steps,
+               wall_s=wall, rollout_s=ctrl.train_seconds['rollout'],
+               update_s=ctrl.train_seconds['update'], losses=losses,
+               config_differs_from_json_copy=differ, loaded_acts_identically=same_actions,
+               restore_gives_config=restore_ok, launches=launches, card=smi)
+    emit('experiment', part='train', **row)
+    fresh.close()
+    if differ:
+        raise RuntimeError(f'experiment train: the merged config differs from the JSON '
+                           f'copies in {differ}')
+    _expect_launches('experiment train', launches, 'cartpole_advance', 2 * 150)
+    if iterations != 2 or not all(np.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f'experiment train: {iterations} iterations, losses {losses}')
+    if not same_actions or not restore_ok:
+        raise RuntimeError(f'experiment train: loaded model acts identically {same_actions}, '
+                           f'--restore gives the config {restore_ok}')
+    return row
+
+
+def _exp_vec_env(dev, smi):
+    """make_vec_envs on the three systems at B_VEC: held to
+    FuncEnv.step_autoreset on the same generator (0.0), one K1/K2/K3 launch a
+    step, the episode statistics against the done flags."""
+    from safe_control_gym_tpu_torch.envs.env_wrappers.record_episode_statistics import \
+        VecRecordEpisodeStatistics
+    from safe_control_gym_tpu_torch.envs.env_wrappers.vectorized_env import make_vec_envs
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    rows = {}
+    for system, model in (('cartpole', 'cartpole'), ('quadrotor', 'quadrotor_2D'),
+                          ('quadrotor_3D', 'quadrotor_3D')):
+        env_id, task, _ = eval_config('ppo', model)
+        env_func = functools.partial(make, env_id, device=dev, **task)
+        venv = VecRecordEpisodeStatistics(make_vec_envs(env_func, batch_size=B_VEC, seed=1))
+        gen = torch.Generator(device=dev).manual_seed(2)
+        acts = torch.rand((T_VEC, B_VEC, NU[system]), generator=gen, device=dev) * 2 - 1
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [(venv.reset(), None, None)]
+        for t in range(T_VEC):
+            obs, rew, done, _ = venv.step(acts[t])
+            out.append((obs, rew, done))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        func = make(env_id, device=dev, **task).func
+        ref_gen = torch.Generator(device=dev).manual_seed(1)
+        est, ref_obs = func.reset_batch(ref_gen, B_VEC)
+        err = float(np.abs(out[0][0] - ref_obs.cpu().numpy()).max())
+        dones = 0
+        for t in range(T_VEC):
+            est, step, ref_obs = func.step_autoreset(est, acts[t], ref_gen)
+            obs, rew, done = out[t + 1]
+            err = max(err, float(np.abs(obs - ref_obs.cpu().numpy()).max()),
+                      float(np.abs(rew - step.reward.cpu().numpy()).max()))
+            if not np.array_equal(done, step.done.cpu().numpy()):
+                err = float('inf')
+            dones += int(done.sum())
+        row = dict(envs=B_VEC, T=T_VEC, seconds=wall, ctrl_steps_per_s=B_VEC * T_VEC / wall,
+                   max_abs_err=err, episodes=dones, recorded_episodes=len(venv.return_queue),
+                   mean_episode_length=float(np.mean(venv.length_queue)) if dones else None,
+                   launches=launches, card=smi)
+        rows[system] = row
+        emit('experiment', part=f'vec_env {system}', **row)
+        venv.close()
+        if err != 0.0 or dones == 0 or len(venv.return_queue) != dones:
+            raise RuntimeError(f'experiment vec_env {system}: {row}')
+        _expect_launches(f'experiment vec_env {system}', launches, PHYSICS[system]['name'],
+                         T_VEC)
+    return rows
+
+
+def _hpo(dev, out_dir, *kv):
+    from safe_control_gym_tpu_torch.hyperparameters.hpo import HPO
+    from safe_control_gym_tpu_torch.utils.configuration import ConfigFactory
+    argv = (['--algo', 'ppo', '--task', 'cartpole', '--overrides'] + EXP_HPO_OVERRIDES
+            + ['--device', str(dev.type), '--output_dir', out_dir, '--kv_overrides',
+               f'algo_config.max_env_steps={EXP_HPO_STEPS}', *kv])
+    config = ConfigFactory().merge(argv=argv)
+    return HPO(config.algo, config.task, output_dir=config.output_dir,
+               task_config=config.task_config, algo_config=config.algo_config,
+               hpo_config=config.hpo_config, device=config.device), config
+
+
+def _population_update(pop, pop_cpu, draws, hp_arrays):
+    """The population's first update (all epochs, and its first epoch alone)
+    on the card against a CPU copy on the same batch (the card's first
+    rollout) and permutations; and the CPU's own spread: its update of the
+    batch with the observations moved by 1e-7 of their size.
+    Returns each lane's largest parameter difference of each comparison, and
+    the card's parameters after the whole update."""
+    from safe_control_gym_tpu_torch.hyperparameters import population as popmod
+    from safe_control_gym_tpu_torch.math.optim import tree_leaves, tree_unflatten
+    P = len(draws['iterations'][0]['perms'][0])
+    hp = pop.hp_tensors(hp_arrays, P)
+    params = draws['params']
+    est, obs = draws['init']
+    _, _, batch = pop.rollout(params, hp, est, obs, draws['iterations'][0])
+    perms = draws['iterations'][0]['perms']
+    cpu_params = tree_unflatten(params, [x.cpu() for x in tree_leaves(params)])
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_hp = pop_cpu.hp_tensors(hp_arrays, P)
+
+    def update(p, ev, h, b, epochs):
+        actor = tree_leaves({k: p[k] for k in ('actor', 'logstd')})
+        new, a_opt, _ = ev.update(p, popmod.adam_init(actor),
+                                  popmod.adam_init(tree_leaves(p['critic'])), h, b,
+                                  perms[:epochs].to(ev.device))
+        return new, a_opt['t'].cpu().numpy()
+
+    def lane_err(a, b):
+        return np.array([max(float((x[lane].cpu() - y[lane].cpu()).abs().max())
+                             for x, y in zip(tree_leaves(a), tree_leaves(b)))
+                         for lane in range(P)])
+
+    epochs = perms.shape[0]
+    card, card_steps = update(params, pop, hp, batch, epochs)
+    cpu, cpu_steps = update(cpu_params, pop_cpu, cpu_hp, cpu_batch, epochs)
+    card1, _ = update(params, pop, hp, batch, 1)
+    cpu1, _ = update(cpu_params, pop_cpu, cpu_hp, cpu_batch, 1)
+    moved = dict(cpu_batch, obs=cpu_batch['obs'] * (1 + 1e-7))
+    spread = lane_err(cpu, update(cpu_params, pop_cpu, cpu_hp, moved, epochs)[0])
+    return dict(epochs=epochs, minibatches=pop.num_mb,
+                one_epoch_max_abs_err=float(lane_err(card1, cpu1).max()),
+                lane_max_abs_err=lane_err(card, cpu).tolist(),
+                cpu_spread=spread.tolist(),
+                accepted_actor_steps_card=card_steps.tolist(),
+                accepted_actor_steps_cpu=cpu_steps.tolist()), card
+
+
+def _exp_hpo(dev, out_dir, smi):
+    """Two sequential trials of examples/hpo's PPO config, then one vectorized
+    round as one population; the population's update card against CPU and a
+    lane against a one-lane population on the same draws."""
+    from safe_control_gym_tpu_torch.hyperparameters import population as popmod
+    from safe_control_gym_tpu_torch.math.optim import tree_leaves
+    from safe_control_gym_tpu_torch.utils.registration import make
+    rows = {}
+    hpo, config = _hpo(dev, os.path.join(out_dir, 'seq'), 'hpo_config.trials=2')
+    _zero_launches()
+    t0 = time.perf_counter()
+    study = hpo.hyperparameter_optimization()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    hpo.close()
+    per_trial = 2 * 100 + 251
+    done = [t for t in study.trials if t['state'] == 'COMPLETE']
+    row = dict(trials=len(study.trials), completed=len(done),
+               values=[t['value'] for t in study.trials],
+               params=[t['params'] for t in study.trials], seconds=wall,
+               seconds_per_trial=wall / 2,
+               trials_csv=os.path.exists(os.path.join(out_dir, 'seq', 'trials.csv')),
+               launches=launches, card=smi)
+    rows['sequential'] = row
+    emit('experiment', part='hpo sequential', **row)
+    if len(done) != 2 or not row['trials_csv'] or not all(np.isfinite(row['values'])):
+        raise RuntimeError(f'experiment hpo sequential: {row}')
+    _expect_launches('experiment hpo sequential', launches, 'cartpole_advance',
+                     2 * per_trial)
+    hpo, config = _hpo(dev, os.path.join(out_dir, 'vec'), f'hpo_config.trials={HPO_TRIALS}',
+                       f'hpo_config.vectorized_trials={HPO_TRIALS}',
+                       f'hpo_config.repetitions={HPO_REPS}',
+                       f'hpo_config.n_episodes={HPO_N_EVAL}',
+                       'hpo_config.hps_config=' + repr({k: 1 for k in HPO_VECTOR_SPACE}))
+    _zero_launches()
+    study = hpo.hyperparameter_optimization()
+    torch.cuda.synchronize()
+    launches = _launches()
+    hpo.close()
+    rounds = hpo.vectorized_rounds
+    lanes = HPO_TRIALS * HPO_REPS
+    done = [t for t in study.trials if t['state'] == 'COMPLETE']
+    row = dict(trials=HPO_TRIALS, repetitions=HPO_REPS, lanes=lanes, envs=lanes * 16,
+               rounds=rounds, seconds=rounds[0]['seconds'] if rounds else None,
+               lane_trainings_per_s=lanes / rounds[0]['seconds'] if rounds else None,
+               values=[t['value'] for t in done], launches=launches, card=smi)
+    rows['vectorized'] = row
+    emit('experiment', part='hpo vectorized round', **row)
+    if len(rounds) != 1 or rounds[0]['lanes'] != lanes or len(done) != HPO_TRIALS:
+        raise RuntimeError(f'experiment hpo vectorized: {row}')
+    _expect_launches('experiment hpo vectorized', launches, 'cartpole_advance', per_trial)
+    # The population itself, at the round's shape with lanes of moderate
+    # learning rates: its update on the card against the CPU, and lane
+    # POP_LANE against a one-lane population fed the same draws.
+    cfg = config.algo_config
+    kw = dict(rollout_batch_size=cfg.rollout_batch_size, rollout_steps=cfg.rollout_steps,
+              iterations=EXP_HPO_STEPS // (cfg.rollout_batch_size * cfg.rollout_steps),
+              opt_epochs=cfg.opt_epochs, mini_batch_size=cfg.mini_batch_size,
+              hidden_dim=cfg.hidden_dim, activation=cfg.activation, use_gae=cfg.use_gae,
+              n_eval=HPO_N_EVAL)
+    env_func = functools.partial(make, 'cartpole', seed=0, **config.task_config)
+    pop = popmod.make_population_ppo_evaluator(env_func, device=dev, **kw)
+    pop_cpu = popmod.make_population_ppo_evaluator(env_func, device='cpu', **kw)
+    seeds = list(range(100, 100 + lanes))
+    rng = np.random.default_rng(0)
+    hp_arrays = {'actor_lr': 10 ** rng.uniform(-4, -2.5, lanes),
+                 'critic_lr': 10 ** rng.uniform(-3.5, -2.5, lanes),
+                 'entropy_coef': 10 ** rng.uniform(-4, -1.5, lanes),
+                 'target_kl': rng.uniform(0.005, 0.05, lanes)}
+    draws = pop.lane_draws(seeds)
+    upd, trained = _population_update(pop, pop_cpu, draws, hp_arrays)
+    repeatable = np.asarray(upd['cpu_spread']) <= POP_REPEATABLE
+    upd['repeatable_lanes'] = np.flatnonzero(repeatable).tolist()
+    upd_ok = (upd['one_epoch_max_abs_err'] <= POP_UPDATE_ATOL
+              and repeatable.mean() >= POP_REPEATABLE_SHARE
+              and bool(np.all(np.asarray(upd['lane_max_abs_err'])[repeatable]
+                              <= POP_UPDATE_ATOL))
+              and upd['accepted_actor_steps_card'] == upd['accepted_actor_steps_cpu'])
+    # Lane POP_LANE after the first iteration (the rollout and the whole
+    # update above), and its evaluation, against a one-lane population.
+    one_draws = pop.select_lanes(draws, [POP_LANE])
+    one_hp = pop.hp_tensors({k: v[POP_LANE:POP_LANE + 1] for k, v in hp_arrays.items()}, 1)
+    params = one_draws['params']
+    _, _, batch = pop.rollout(params, one_hp, *one_draws['init'], one_draws['iterations'][0])
+    one_trained = pop.update(
+        params, popmod.adam_init(tree_leaves({k: params[k] for k in ('actor', 'logstd')})),
+        popmod.adam_init(tree_leaves(params['critic'])), one_hp, batch,
+        one_draws['iterations'][0]['perms'])[0]
+    param_err = max(float((a[POP_LANE] - b[0]).abs().max())
+                    for a, b in zip(tree_leaves(trained), tree_leaves(one_trained)))
+    lane_returns = pop.evaluate_params(trained, popmod._FedDraws(draws),
+                                       lanes)[POP_LANE].cpu().numpy()
+    one = pop.evaluate_params(one_trained, popmod._FedDraws(one_draws), 1)[0].cpu().numpy()
+    lane_err = float(np.abs(lane_returns - one).max())
+    scale = float(np.abs(lane_returns).max())
+    row = dict(lanes=lanes, update=upd, update_atol=POP_UPDATE_ATOL,
+               repeatable_below=POP_REPEATABLE, lane=POP_LANE,
+               lane_param_max_abs_err=param_err, lane_returns=lane_returns.tolist(),
+               one_lane_returns=one.tolist(), lane_max_abs_err=lane_err,
+               lane_rtol=POP_LANE_RTOL, card=smi)
+    rows['population'] = row
+    emit('experiment', part='population card against CPU and lane against one lane', **row)
+    if not upd_ok:
+        raise RuntimeError(f'experiment population: the card\'s update differs from the '
+                           f'CPU\'s: {upd}')
+    if not (param_err <= POP_UPDATE_ATOL and lane_err <= POP_LANE_RTOL * max(scale, 1.0)):
+        raise RuntimeError(f'experiment population: lane {POP_LANE} differs from the '
+                           f'one-lane population: {row}')
+    return rows
+
+
+def experiment(dev, smi):
+    """The experiment layer on the card through the examples' entry points:
+    train(), make_vec_envs and HPO with its population; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        rows['train'] = _exp_train(dev, out_dir, smi)
+        rows['vec_env'] = _exp_vec_env(dev, smi)
+        rows.update(_exp_hpo(dev, out_dir, smi))
+    launches = {m['name']: 0 for m in PHYSICS.values()}
+    for part in [rows['train'], rows['sequential'], rows['vectorized']] + list(
+            rows['vec_env'].values()):
+        for name in launches:
+            launches[name] += part['launches'][name]
+    emit('experiment', part='done', launches=launches, seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3370,7 +3759,7 @@ def main():
         for phase in only.split(','):
             timed(phase, {'control': control, 'mpc': mpc, 'gp_mpc': gp_mpc,
                           'safety': safety, 'off_policy': off_policy,
-                          'robust': robust}[phase], dev, smi)
+                          'robust': robust, 'experiment': experiment}[phase], dev, smi)
         emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
              card=smi, phases=only)
         return
@@ -3389,6 +3778,7 @@ def main():
     sf_launches, sf_rows = timed('safety', safety, dev, smi)
     op_launches, op_rows = timed('off_policy', off_policy, dev, smi)
     rb_launches, rb_rows = timed('robust', robust, dev, smi)
+    ex_launches, ex_rows = timed('experiment', experiment, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -3494,6 +3884,17 @@ def main():
                           f'({int(rb_rows["safe_explorer quadrotor_2D"]["average_length"])} '
                           'steps); 20 substeps'),
             'quadrotor_3D': 'not on the robust path'}[system]
+        row['experiment_launches'] = ex_launches[PHYSICS[system]['name']]
+        vec = ex_rows['vec_env'][system]
+        row['experiment_shape'] = (
+            f'make_vec_envs B={vec["envs"]} T={vec["T"]}'
+            + (f'; train() B={ex_rows["train"]["envs"]} T={ex_rows["train"]["T"]} x '
+               f'{ex_rows["train"]["iterations"]} iterations; HPO: 2 sequential trials '
+               f'(B=16, 2 x T=100 and a 251-step eval each) and one vectorized round of '
+               f'{ex_rows["vectorized"]["lanes"]} lanes as one population '
+               f'(B={ex_rows["vectorized"]["envs"]}, 2 x T=100, then '
+               f'{ex_rows["vectorized"]["lanes"] * HPO_N_EVAL} envs x 251 eval steps)'
+               if system == 'cartpole' else ''))
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

@@ -146,7 +146,7 @@ class FuncEnv:
 
     * ``reset_batch(gen, n) -> (EnvState, obs)``
     * ``step(est, actions, gen=None, drawn=None) -> (EnvState, StepOut)``
-    * ``step_autoreset(est, actions, gen, drawn=None) -> (EnvState, StepOut, obs)``
+    * ``step_autoreset(est, actions, gen, drawn=None, fresh=None) -> (EnvState, StepOut, obs)``
 
     ``drawn`` maps a disturbance channel ('observation', 'action',
     'dynamics') to that step's pre-drawn noise; a stochastic channel missing
@@ -532,17 +532,18 @@ class BenchmarkEnv:
                 noisy_action=noisy, clipped_action=clipped, physical_action=phys)
             return est_new.replace(ctrl_step=new_step), out
 
-        def step_autoreset(est: EnvState, actions, gen, drawn=None):
+        def step_autoreset(est: EnvState, actions, gen, drawn=None, fresh=None):
             """``step``, then every done env starts afresh: its state, counter,
             disturbance state and adversary buffer come from a new
-            ``reset_batch`` draw."""
+            ``reset_batch`` draw, or from ``fresh``, a ``(EnvState, obs)`` of
+            the batch's size drawn beforehand."""
             n = est.state.shape[0]
             drawn = dict(drawn or {})
             for ch in stochastic:
                 if ch not in drawn:
                     drawn[ch] = dists[ch].draw(gen, n)
             est, out = step(est, actions, drawn=drawn)
-            fresh, fresh_obs = reset_batch(gen, n)
+            fresh, fresh_obs = reset_batch(gen, n) if fresh is None else fresh
             done_col = out.done[:, None]
             est = est.replace(
                 state=torch.where(done_col, fresh.state, est.state),

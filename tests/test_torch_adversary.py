@@ -28,6 +28,17 @@ from safe_control_gym_tpu_torch.math.optim import tree_leaves
 from safe_control_gym_tpu_torch.utils.convert import env_state_from_numpy, env_state_to_numpy
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 SYSTEMS = {'cartpole': ('cartpole', {}),
            'quadrotor_2D': ('quadrotor', dict(quad_type=2)),
            'quadrotor_3D': ('quadrotor', dict(quad_type=3,

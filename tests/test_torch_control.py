@@ -37,6 +37,17 @@ from safe_control_gym_tpu_torch.experiments.control_configs import control_confi
 from safe_control_gym_tpu_torch.utils.registration import get_config as tget
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = {'output_dir': 'temp/test_torch_control'}
 SYSTEMS = ('cartpole', 'quadrotor_2D', 'quadrotor_3D')

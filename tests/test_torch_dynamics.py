@@ -18,6 +18,17 @@ from safe_control_gym_tpu_torch.envs import trajectories as ttraj
 from safe_control_gym_tpu_torch.math import linalg as tlinalg
 from safe_control_gym_tpu_torch.math import rotations as trot
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ATOL = 1e-6
 
 

@@ -24,6 +24,17 @@ from safe_control_gym_tpu_torch.utils.convert import (cartpole_params_from_numpy
 from safe_control_gym_tpu_torch.utils.registration import get_config
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BASE = dict(seed=0, ctrl_freq=50, pyb_freq=1000, episode_len_sec=0.4,

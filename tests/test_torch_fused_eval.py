@@ -11,12 +11,24 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from safe_control_gym_tpu.utils.registration import get_config as jget
 from safe_control_gym_tpu.utils.registration import make as jmake
 from safe_control_gym_tpu_torch.experiments import fused_eval as tfe
 from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXED_START = dict(randomized_init=False, init_state={'init_x': 0.1, 'init_theta': 0.05})

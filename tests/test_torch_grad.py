@@ -27,6 +27,17 @@ from safe_control_gym_tpu_torch.ops import physics_kernels as pk
 from safe_control_gym_tpu_torch.ops import rollout_kernels as rk
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 DEMO = dict(seed=0, ctrl_freq=15, pyb_freq=750, init_state={'init_theta': 0.4},
             randomized_init=False, cost='quadratic')
 W = [1.0, 0.1, 5.0, 0.1]

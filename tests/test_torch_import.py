@@ -10,6 +10,17 @@ import sys
 import pytest
 import torch
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'safe_control_gym_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'chex', 'safe_control_gym_tpu', 'gymnasium')
@@ -98,6 +109,26 @@ def test_import_leaves_jax_out_of_sys_modules(tmp_path):
             ' agent_iterations=1, adversary_iterations=1, output_dir=%r,'
             ' checkpoint_path="")\n'
             'rap.reset(); rap.learn()\n'
+            'import safe_control_gym_tpu_torch.utils.profiling\n'
+            'import safe_control_gym_tpu_torch.utils.plotting\n'
+            'import safe_control_gym_tpu_torch.version\n'
+            'from safe_control_gym_tpu_torch.utils import yaml_io\n'
+            'yaml_io.load_file("examples/hpo/config_overrides/ppo_cartpole_hpo.yaml")\n'
+            'from safe_control_gym_tpu_torch.experiments.train_rl_controller import train\n'
+            'from safe_control_gym_tpu_torch.envs.env_wrappers.vectorized_env import'
+            ' make_vec_envs\n'
+            'from safe_control_gym_tpu_torch.envs.env_wrappers.record_episode_statistics'
+            ' import VecRecordEpisodeStatistics\n'
+            'venv = VecRecordEpisodeStatistics(make_vec_envs(partial(make, "cartpole",'
+            ' device="cpu"), batch_size=2))\n'
+            'venv.reset(); venv.step([[0.0], [0.0]])\n'
+            'from safe_control_gym_tpu_torch.hyperparameters.hpo import HPO\n'
+            'from safe_control_gym_tpu_torch.hyperparameters.population import'
+            ' make_population_ppo_evaluator\n'
+            'make_population_ppo_evaluator(partial(make, "cartpole"), rollout_batch_size=2,'
+            ' rollout_steps=2, iterations=1, opt_epochs=1, hidden_dim=8, n_eval=1,'
+            ' device="cpu")({}, [0])\n'
+            'import safe_control_gym_tpu_torch.hyperparameters.database\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)\n'
             'print(bad); sys.exit(1 if bad else 0)'
             % (str(tmp_path / 'sac'), str(tmp_path / 'rap'), FORBIDDEN))
@@ -151,3 +182,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from safe_control_gym_tpu_torch.controllers.off_policy_utils import replay_init
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         replay_init({'obs': 4}, 8)
+    from safe_control_gym_tpu_torch.envs.env_wrappers.vectorized_env import make_vec_envs
+    from safe_control_gym_tpu_torch.experiments.train_rl_controller import train
+    from safe_control_gym_tpu_torch.hyperparameters.hpo import HPO
+    from safe_control_gym_tpu_torch.hyperparameters.population import \
+        make_population_ppo_evaluator
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train(['--algo', 'ppo', '--task', 'cartpole', '--output_dir', 'temp/never'])
+    assert not os.path.exists(os.path.join('temp', 'never'))
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        make_vec_envs(functools.partial(make, 'cartpole'), batch_size=2)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        HPO('ppo', 'cartpole', output_dir='temp/never_hpo')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        make_population_ppo_evaluator(functools.partial(make, 'cartpole', device='cpu'))
+    venv = make_vec_envs(functools.partial(make, 'cartpole', device='cpu'), batch_size=2)
+    assert venv.device.type == 'cpu'
+    pop = make_population_ppo_evaluator(functools.partial(make, 'cartpole'), device='cpu')
+    assert pop.device.type == 'cpu' and pop.env.device.type == 'cpu'

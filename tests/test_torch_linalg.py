@@ -17,6 +17,17 @@ import torch
 from safe_control_gym_tpu.math import linalg as jl
 from safe_control_gym_tpu_torch.math import linalg as tl
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 RTOL = 1e-4
 
 

@@ -31,6 +31,17 @@ from safe_control_gym_tpu_torch.math.optim import tree_leaves
 from safe_control_gym_tpu_torch.utils.convert import env_state_from_numpy
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 # Cartpole from rest with the pole at 0.1 rad in 1 s episodes: under random
 # actions some envs pass the 12 degree bound (terminations, mask 0) and the
 # rest reach the time limit (truncations, mask 1) within 120 steps.

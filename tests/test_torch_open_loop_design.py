@@ -19,6 +19,17 @@ from safe_control_gym_tpu_torch.experiments.benchmark_suite import hover_actions
 from safe_control_gym_tpu_torch.ops import _launch
 from safe_control_gym_tpu_torch.ops import rollout_kernels as trk
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 CSRC = os.path.join(os.path.dirname(trk.__file__), '..', 'csrc')
 
 

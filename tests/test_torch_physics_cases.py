@@ -27,6 +27,17 @@ from jax.experimental import pallas as pl
 from safe_control_gym_tpu_torch.experiments import benchmark_suite as bs
 from safe_control_gym_tpu_torch.ops import physics_kernels as tk
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 CTRL_DT = 0.02
 TOL = 1e-5
 CASES = ('forces', 'hover', 'angle_2e5')

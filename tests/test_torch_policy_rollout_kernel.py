@@ -22,6 +22,17 @@ from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
 from safe_control_gym_tpu_torch.ops import rollout_kernels as trk
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 CARTPOLE = dict(seed=0, ctrl_freq=50, pyb_freq=1000, episode_len_sec=0.4,
                 randomized_init=False, init_state={'init_x': 0.1},
                 task_info={'stabilization_goal': [0], 'stabilization_goal_tolerance': 0.0})

@@ -26,6 +26,16 @@ from safe_control_gym_tpu_torch.math.distributions import Categorical
 from safe_control_gym_tpu_torch.math.optim import tree_leaves
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

@@ -31,6 +31,17 @@ import torch
 from safe_control_gym_tpu.ops.qp import admm_qp as jax_qp
 from safe_control_gym_tpu_torch.ops import qp as tqp
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 TOL = 1e-4
 
 

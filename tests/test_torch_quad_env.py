@@ -26,6 +26,17 @@ from safe_control_gym_tpu_torch.utils.convert import (env_state_from_numpy,
 from safe_control_gym_tpu_torch.utils.registration import get_config
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BENCH_CONSTRAINTS = [

@@ -25,6 +25,17 @@ from safe_control_gym_tpu_torch.envs import dynamics as tdyn
 from safe_control_gym_tpu_torch.ops import physics_kernels as tk
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 N_SUB, DT = 20, 1e-3
 P2D = [0.027, 1.4e-5, 0.0397, 9.8]
 P3D = [0.027, 1.4e-5, 1.4e-5, 2.17e-5, 0.0397, 9.8]

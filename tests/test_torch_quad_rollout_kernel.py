@@ -27,6 +27,17 @@ from safe_control_gym_tpu_torch.ops import rollout_kernels as trk
 from safe_control_gym_tpu_torch.utils.convert import env_state_from_numpy
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 BENCH_CONSTRAINTS = [
     {'constraint_form': 'default_constraint', 'constrained_variable': 'state'},
     {'constraint_form': 'default_constraint', 'constrained_variable': 'input'},

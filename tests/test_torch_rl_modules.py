@@ -31,6 +31,17 @@ from safe_control_gym_tpu_torch.utils.checkpoint import load_checkpoint
 from safe_control_gym_tpu_torch.utils.convert import (mlp_params_from_numpy,
                                                       normalizer_from_numpy)
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = sorted(glob.glob(os.path.join(ROOT, 'examples', 'rl', 'models', '*', '*.pt')))
 PPO_SAC_MODELS = [m for m in MODELS if os.sep + 'safe_explorer_ppo' + os.sep not in m]

@@ -20,6 +20,17 @@ from safe_control_gym_tpu.utils.registration import make as jmake
 from safe_control_gym_tpu_torch.controllers.base_controller import BaseController as TBase
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One torch thread for the module (the suite runs several workers on
+    few cores), the prior count restored after."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prior)
+
+
 ATOL = 1e-5
 N_POINTS = 16
 SYSTEMS = {
