@@ -4,15 +4,17 @@ closed-loop evaluation of the committed RL models, PPO training, the
 model-based controllers (LQR, iLQR, PID), the MPC family (MPC, linear MPC,
 MPC_ACADOS), GP-MPC with its batch and the scenario solve, the safety
 filters (linear MPSC, CBF, CBF-NN), SAC and DDPG training, RARL, RAP and
-SafeExplorerPPO with the env's adversary channel, and the experiment layer
-(train_rl_controller, the vectorized envs, HPO with population PPO) through
-the port's entry points.
+SafeExplorerPPO with the env's adversary channel, the experiment layer
+(train_rl_controller, the vectorized envs, HPO with population PPO) and the
+env's remaining features (the 1D quad, the physics modes, randomized
+inertial properties, rendering) through the port's entry points.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety,
-                                            # off_policy, robust, experiment
-                                            # alone (comma-separated), no
-                                            # result line
+                                            # off_policy, robust, experiment,
+                                            # env_extras alone
+                                            # (comma-separated), no result
+                                            # line
 
 Phases, one JSON line each:
   1. card      the card's name and power limit (nvidia-smi);
@@ -242,7 +244,31 @@ Phases, one JSON line each:
                fed the same draws, after the first iteration (parameters
                within POP_UPDATE_ATOL, evaluation returns within
                POP_LANE_RTOL);
- 18. kernels   one entry per kernel with its launches, error, times and bound
+ 18. env_extras  the env's remaining features at B_EXTRAS (4096), every
+               case's step_autoreset on the card against the port's CPU on
+               its first EXTRAS_CPU_ROWS envs fed the card's reset draws
+               (states within EXTRAS_ATOL, reward sums within it relative,
+               done counts and step counters equal): the 1D quad over
+               T_EXTRAS_1D random actions; the six physics modes of the 2D
+               and 3D quads and pyb_gnd of the 1D quad over T_EXTRAS_MODES
+               steps of thrusts about hover from near-ground, moving starts,
+               K2/K3 one launch a step on 'pyb' and none on the general
+               advance, and each mode against 'pyb' over T_EXTRAS_EFFECT
+               hover steps (pyb_gnd, pyb_drag and pyb_gnd_drag_dw apart by
+               more than 1e-6, drag not in 1D; pyb_dw within EXTRAS_ATOL);
+               randomized inertial properties of the cartpole and the 2D and
+               3D quads over T_EXTRAS_RAND steps (the envs that were not
+               done keep their parameters exactly, the done ones take the
+               fresh draw's; the first draws' means and variances against
+               the spec's, z <= 6; K1-K3 no launch), each beside the
+               shared-parameter case (one launch a step); rendering, a card
+               env's host state within EXTRAS_ATOL of a CPU env's after the
+               same steps and, where matplotlib is installed, its frame
+               equal to the CPU env's in the same state and a gui=True
+               env's viewer redrawn at every reset and step; each
+               case's ms a step (CUDA events around the card's step alone),
+               K1-K3 launches a step and physics route;
+ 19. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
                control, mpc_launches, mpc_shape and grad_max_abs_err, from
@@ -250,8 +276,9 @@ Phases, one JSON line each:
                gp_mpc, safety_launches and safety_shape, from phase safety,
                off_policy_launches and off_policy_shape, from phase
                off_policy, robust_launches and robust_shape, from phase
-               robust, and experiment_launches and experiment_shape, from
-               phase experiment; K4's policy row also with off_policy_launches, the
+               robust, experiment_launches and experiment_shape, from phase
+               experiment, and env_extras_launches and env_extras_shape,
+               from phase env_extras; K4's policy row also with off_policy_launches, the
                trained actors' evaluate_fused launches).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
@@ -260,6 +287,7 @@ and the exit code is then not 0. Without a CUDA device it exits with code 2.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -604,6 +632,28 @@ POP_LANE = 3
 # 3's update is one the CPU repeats to 1e-5), the returns of their
 # evaluation to POP_LANE_RTOL of their size.
 POP_LANE_RTOL = 1e-3
+
+# Phase env_extras: the env's remaining features at B_EXTRAS, card against
+# the port's CPU. The CPU repeats the first EXTRAS_CPU_ROWS envs of each
+# batch (the envs of a batch are independent), fed the card's reset draws.
+B_EXTRAS = 4096
+EXTRAS_CPU_ROWS = 256
+EXTRAS_ATOL = 1e-4
+# The 3D quad's cases are cut from 100 and 256 steps to keep the phase near
+# 40 s: the general advance takes 27-53 ms a step in 3D at B=4096,
+# host-bound (PERF.md §4).
+T_EXTRAS_1D = 256           # the 1D quad, random actions, auto-reset
+# The physics modes from near-ground, moving starts, by quad type.
+T_EXTRAS_MODES = {1: 100, 2: 100, 3: 25}
+# Randomized inertial properties and the shared case beside, by system.
+T_EXTRAS_RAND = {'cartpole': 256, 'quadrotor': 256, 'quadrotor_3D': 64}
+T_EXTRAS_EFFECT = 10        # hover steps of each mode against 'pyb'
+EXTRAS_MODES = ('pyb', 'dyn', 'pyb_gnd', 'pyb_drag', 'pyb_dw', 'pyb_gnd_drag_dw')
+EXTRAS_QUAD = {1: ('quadrotor', dict(quad_type=1, task_info={'stabilization_goal': [0, 1]})),
+               2: ('quadrotor', dict(quad_type=2, task_info={'stabilization_goal': [0, 1]})),
+               3: ('quadrotor', dict(quad_type=3, task_info={'stabilization_goal': [0, 0, 1]}))}
+EXTRAS_BASE = dict(seed=0, ctrl_freq=50, pyb_freq=1000, episode_len_sec=2)
+NU_QUAD = {1: 1, 2: 2, 3: 4}
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -3726,6 +3776,253 @@ def experiment(dev, smi):
          card=smi)
     return launches, rows
 
+def _est_rows(est, rows, dev):
+    """The first ``rows`` envs of an EnvState on ``dev``: every batched field,
+    per-env parameters included, cut; shared parameters moved."""
+    cut = lambda t: (t[:rows] if t.ndim else t).to(dev)
+    params = dataclasses.replace(est.dyn_params, **{
+        f.name: cut(getattr(est.dyn_params, f.name))
+        for f in dataclasses.fields(est.dyn_params)})
+    return est.replace(dyn_params=params, **{f.name: cut(getattr(est, f.name))
+                                             for f in dataclasses.fields(est)
+                                             if f.name != 'dyn_params'})
+
+
+def _extras_case(label, env_id, kw, dev, smi, T, actions=None, x0=None, randomized=False):
+    """step_autoreset of a B_EXTRAS batch on the card, T steps, the first
+    EXTRAS_CPU_ROWS envs repeated on the CPU from the card's reset draws:
+    states within EXTRAS_ATOL, reward sums within EXTRAS_ATOL relative, done
+    counts and step counters equal; with ``randomized``, the envs that were
+    not done keep their parameters exactly and the done ones take the fresh
+    draw's. ``actions`` (T, B, nu) default to uniform draws over the action
+    space; ``x0`` replaces the first states. Returns the row (ms a step of
+    the card's step alone, K1-K3 launches a step, the route, and one more
+    step under the profiler: its CUDA kernels and the device's busy share)."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env = make(env_id, device=dev, **kw)
+    cpu = make(env_id, device='cpu', **kw)
+    R = EXTRAS_CPU_ROWS
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cpu_gen = torch.Generator().manual_seed(5)
+    if actions is None:
+        lo = torch.as_tensor(env.action_space.low, device=dev)
+        hi = torch.as_tensor(env.action_space.high, device=dev)
+        actions = lo + torch.rand((T, B_EXTRAS, env.action_dim), generator=gen,
+                                  device=dev) * (hi - lo)
+    est, _ = env.func.reset_batch(gen, B_EXTRAS)
+    if x0 is not None:
+        est = est.replace(state=x0)
+    est_cpu = _est_rows(est, R, 'cpu')
+    first_params = est.dyn_params
+    z = lambda d, n: torch.zeros(n, device=d)
+    rew, dn, rew_cpu, dn_cpu = z(dev, B_EXTRAS), z(dev, B_EXTRAS), z('cpu', R), z('cpu', R)
+    kept_ok = True
+    before = _launches()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    step_ms = 0.0
+    for t in range(T):
+        fresh = env.func.reset_batch(gen, B_EXTRAS)
+        fresh_cpu = (_est_rows(fresh[0], R, 'cpu'), fresh[1][:R].cpu())
+        e0.record()
+        new, out, _ = env.func.step_autoreset(est, actions[t], gen, fresh=fresh)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms += e0.elapsed_time(e1)
+        if randomized:
+            for f in dataclasses.fields(new.dyn_params):
+                old_v, new_v = getattr(est.dyn_params, f.name), getattr(new.dyn_params, f.name)
+                if new_v.ndim:
+                    kept_ok &= bool(torch.equal(new_v[~out.done], old_v[~out.done]))
+                    kept_ok &= bool(torch.equal(new_v[out.done],
+                                                getattr(fresh[0].dyn_params, f.name)[out.done]))
+        est = new
+        rew += out.reward
+        dn += out.done
+        est_cpu, out_cpu, _ = cpu.func.step_autoreset(est_cpu, actions[t, :R].cpu(), cpu_gen,
+                                                      fresh=fresh_cpu)
+        rew_cpu += out_cpu.reward
+        dn_cpu += out_cpu.done
+    launches = _launches(before)
+    # One more card step under the profiler: CUDA kernels a step, busy share.
+    p_wall, p_busy, p_kernels = _profiled(
+        lambda: env.func.step_autoreset(est, actions[-1], gen), cpu_activity=False)
+    state_err = float((est.state[:R].cpu() - est_cpu.state).abs().max())
+    rew_card = rew[:R].cpu()
+    rew_err = float(((rew_card - rew_cpu).abs() / (1 + rew_cpu.abs())).max())
+    counts_equal = bool(torch.equal(dn[:R].cpu(), dn_cpu)
+                        and torch.equal(est.ctrl_step[:R].cpu(), est_cpu.ctrl_step))
+    row = dict(case=label, route=env.physics_route, envs=B_EXTRAS, T=T, cpu_rows=R,
+               ms_per_step=step_ms / T,
+               launches_per_step={k: v / T for k, v in launches.items() if v},
+               kernels_per_step=p_kernels, device_busy_share=p_busy / p_wall,
+               state_err=state_err, reward_err=rew_err, counts_equal=counts_equal,
+               done_count=float(dn.sum()), card=smi)
+    if randomized:
+        row['params_kept_and_redrawn'] = kept_ok
+        row['first_params'] = first_params
+    emit('env_extras', **{k: v for k, v in row.items() if k != 'first_params'})
+    if not (state_err <= EXTRAS_ATOL and rew_err <= EXTRAS_ATOL and counts_equal
+            and kept_ok and row['done_count'] > 0):
+        raise RuntimeError(f'env_extras {label}: card against CPU: {row}')
+    return row
+
+
+def _near_ground(quad_type, dev):
+    """B_EXTRAS starts near the ground (z in [0.02, 0.3]) with velocities up
+    to 2 m/s and angles and rates off zero (tests/test_torch_quad_physics_modes.py)."""
+    gen = torch.Generator(device=dev).manual_seed(quad_type)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(B_EXTRAS, generator=gen, device=dev)
+    nx = {1: 2, 2: 6, 3: 12}[quad_type]
+    zi = {1: 0, 2: 2, 3: 4}[quad_type]
+    x = torch.zeros((B_EXTRAS, nx), device=dev)
+    x[:, zi], x[:, zi + 1] = u(0.02, 0.3), u(-2, 2)
+    if quad_type == 2:
+        x[:, 0], x[:, 1], x[:, 4], x[:, 5] = u(-1, 1), u(-2, 2), u(-0.4, 0.4), u(-1, 1)
+    if quad_type == 3:
+        for k, (lo, hi) in zip((0, 1, 2, 3, 6, 7, 8, 9, 10, 11),
+                               ((-1, 1), (-2, 2), (-1, 1), (-2, 2)) + ((-0.4, 0.4),) * 3
+                               + ((-1, 1),) * 3):
+            x[:, k] = u(lo, hi)
+    return x
+
+
+def _spec_moments(spec, nominal):
+    """The mean, variance and fourth central moment of an additive draw of
+    ``spec`` about ``nominal`` (uniform or choice)."""
+    if spec['distrib'] == 'uniform':
+        lo, hi = spec['low'], spec['high']
+        return nominal + (lo + hi) / 2, (hi - lo) ** 2 / 12, (hi - lo) ** 4 / 80
+    opts = np.asarray(spec['args'][0], np.float64)
+    return nominal + opts.mean(), opts.var(), ((opts - opts.mean()) ** 4).mean()
+
+
+def env_extras(dev, smi):
+    """The 1D quad, the physics modes, domain randomization and rendering on
+    the card; see the module docstring."""
+    from safe_control_gym_tpu_torch.utils.registration import make
+    t_phase = time.perf_counter()
+    rows = {}
+    # The 1D quad: random actions with auto-reset.
+    env_id, kw = EXTRAS_QUAD[1]
+    rows['quad1d'] = _extras_case('quad1d pyb', env_id, dict(EXTRAS_BASE, **kw), dev, smi,
+                                     T_EXTRAS_1D)
+    # The modes from near-ground, moving starts, thrusts about hover; 'pyb'
+    # of the 2D and 3D quads takes K2/K3, every other case the general
+    # advance.
+    for qt, modes in ((1, ('pyb_gnd',)), (2, EXTRAS_MODES), (3, EXTRAS_MODES)):
+        env_id, kw = EXTRAS_QUAD[qt]
+        kname = PHYSICS['quadrotor' if qt == 2 else 'quadrotor_3D']['name'] if qt > 1 else None
+        x0 = _near_ground(qt, dev)
+        for physics in modes:
+            kw_m = dict(EXTRAS_BASE, randomized_init=False, physics=physics, **kw)
+            hover = float(make(env_id, device=dev, **kw_m).U_GOAL[0])
+            gen = torch.Generator(device=dev).manual_seed(10 + qt)
+            acts = hover * (0.5 + 1.1 * torch.rand(
+                (T_EXTRAS_MODES[qt], B_EXTRAS, NU_QUAD[qt]), generator=gen, device=dev))
+            row = _extras_case(f'quad{qt}d {physics}', env_id, kw_m, dev, smi,
+                               T_EXTRAS_MODES[qt], actions=acts, x0=x0)
+            want = 1.0 if physics == 'pyb' and qt > 1 else 0.0
+            if kname is not None and row['launches_per_step'].get(kname, 0.0) != want:
+                raise RuntimeError(f'env_extras quad{qt}d {physics}: {kname} launches a step '
+                                   f'{row["launches_per_step"]}, {want} expected')
+            rows[f'quad{qt}d {physics}'] = row
+        # Each mode's effect: T_EXTRAS_EFFECT hover steps from the same starts
+        # against 'pyb': the ground effect and the drag (not in 1D) move the
+        # states, downwash (one drone) does not.
+        finals = {}
+        for physics in ('pyb',) + modes if qt == 1 else EXTRAS_MODES:
+            e = make(env_id, device=dev, **dict(EXTRAS_BASE, randomized_init=False,
+                                               physics=physics, **kw))
+            est, _ = e.func.reset_batch(torch.Generator(device=dev).manual_seed(0), B_EXTRAS)
+            est = est.replace(state=x0)
+            u = torch.as_tensor(np.tile(e.U_GOAL, (B_EXTRAS, 1)), dtype=torch.float32,
+                                device=dev)
+            for _ in range(T_EXTRAS_EFFECT):
+                est, _ = e.func.step(est, u)
+            finals[physics] = est.state
+        effect = {m: float((finals[m] - finals['pyb']).abs().max()) for m in finals if m != 'pyb'}
+        rows[f'quad{qt}d effect'] = effect
+        emit('env_extras', case=f'quad{qt}d modes against pyb', T=T_EXTRAS_EFFECT,
+             max_abs_diff=effect, card=smi)
+        for m, d in effect.items():
+            if (m in ('pyb_gnd', 'pyb_drag', 'pyb_gnd_drag_dw') and not d > 1e-6) or \
+                    (m == 'pyb_dw' and not d <= EXTRAS_ATOL):
+                raise RuntimeError(f'env_extras quad{qt}d {m} against pyb: {d}')
+    # Randomized inertial properties, with the shared-parameter case beside.
+    for system, env_id, kw in (('cartpole', 'cartpole', {}),
+                               ('quadrotor', *EXTRAS_QUAD[2]),
+                               ('quadrotor_3D', *EXTRAS_QUAD[3])):
+        kname = PHYSICS[system]['name']
+        kw_r = dict(EXTRAS_BASE, randomized_inertial_prop=True, **kw)
+        row = _extras_case(f'{system} randomized', env_id, kw_r, dev, smi,
+                           T_EXTRAS_RAND[system], randomized=True)
+        shared = _extras_case(f'{system} shared', env_id, dict(EXTRAS_BASE, **kw), dev, smi,
+                              T_EXTRAS_RAND[system])
+        if row['launches_per_step'].get(kname, 0) != 0 or \
+                shared['launches_per_step'].get(kname) != 1.0:
+            raise RuntimeError(f'env_extras {system}: {kname} launches a step: randomized '
+                               f'{row["launches_per_step"]}, shared '
+                               f'{shared["launches_per_step"]}')
+        env = make(env_id, device=dev, **kw_r)
+        welch_rows = {}
+        params = row.pop('first_params')
+        for name, spec in env.INERTIAL_PROP_RAND_INFO.items():
+            field = {'M': 'mass'}.get(name, name)
+            drawn = getattr(params, field).double().cpu().numpy()
+            mean, var, mu4 = _spec_moments(spec,
+                                           float(getattr(env._nominal_dyn_params(), field)))
+            # z of the sample mean and of the sample variance against the spec's.
+            zval = abs(drawn.mean() - mean) / np.sqrt(var / drawn.size)
+            z_var = abs(drawn.var() - var) / np.sqrt((mu4 - var ** 2) / drawn.size)
+            welch_rows[field] = dict(mean=drawn.mean(), spec_mean=mean, z=zval,
+                                     var_ratio=drawn.var() / var, z_var=z_var)
+            if not (zval <= 6.0 and z_var <= 6.0):
+                raise RuntimeError(f'env_extras {system}: {field} draws against the spec: '
+                                   f'{welch_rows[field]}')
+        emit('env_extras', case=f'{system} randomized draws', draws=B_EXTRAS, moments=welch_rows)
+        rows[f'{system} randomized'], rows[f'{system} shared'] = row, shared
+    rows['render'] = _extras_render(dev, smi)
+    launches = {m['name']: 0 for m in PHYSICS.values()}
+    for row in rows.values():
+        for name, per_step in row.get('launches_per_step', {}).items():
+            if name in launches:
+                launches[name] += int(round(per_step * row['T']))
+    emit('env_extras', part='done', launches=launches, seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return launches, rows
+
+
+def _extras_render(dev, smi):
+    """A card env and a CPU env stepped alike: the host mirror of the state
+    (what a frame is drawn from) within EXTRAS_ATOL; where matplotlib is
+    installed, the card env's frame equal to the CPU env's put in the same
+    state, and a gui=True env's viewer redrawn at every reset and step."""
+    import importlib.util
+    from safe_control_gym_tpu_torch.utils.registration import make
+    kw = dict(EXTRAS_BASE, randomized_init=False, init_state={'init_z': 1.0}, **EXTRAS_QUAD[3][1])
+    card_env, cpu_env = (make('quadrotor', device=d, **kw) for d in (dev, 'cpu'))
+    for e in (card_env, cpu_env):
+        e.reset()
+        for _ in range(5):
+            e.step(1.05 * e.U_GOAL)
+    row = dict(state_err=float(np.abs(card_env.state - cpu_env.state).max()), card=smi)
+    if importlib.util.find_spec('matplotlib') is None:
+        row['frames'] = 'not drawn: matplotlib is not installed on this machine'
+    else:
+        cpu_env.state = card_env.state.copy()
+        row['frames_equal'] = bool(np.array_equal(card_env.render(), cpu_env.render()))
+        gui = make('cartpole', device=dev, gui=True, **EXTRAS_BASE)
+        gui.reset()
+        for _ in range(3):
+            gui.step(np.zeros(1, np.float32))
+        row['viewer_frames'] = gui._viewer.frame_count
+        gui.close()
+    emit('env_extras', case='render', **row)
+    if not (row['state_err'] <= EXTRAS_ATOL and row.get('frames_equal', True)
+            and row.get('viewer_frames', 4) == 4):
+        raise RuntimeError(f'env_extras render: {row}')
+    return row
+
 
 def main():
     t_start = time.perf_counter()
@@ -3759,7 +4056,8 @@ def main():
         for phase in only.split(','):
             timed(phase, {'control': control, 'mpc': mpc, 'gp_mpc': gp_mpc,
                           'safety': safety, 'off_policy': off_policy,
-                          'robust': robust, 'experiment': experiment}[phase], dev, smi)
+                          'robust': robust, 'experiment': experiment,
+                          'env_extras': env_extras}[phase], dev, smi)
         emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
              card=smi, phases=only)
         return
@@ -3779,6 +4077,7 @@ def main():
     op_launches, op_rows = timed('off_policy', off_policy, dev, smi)
     rb_launches, rb_rows = timed('robust', robust, dev, smi)
     ex_launches, ex_rows = timed('experiment', experiment, dev, smi)
+    xt_launches, _ = timed('env_extras', env_extras, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -3895,6 +4194,12 @@ def main():
                f'(B={ex_rows["vectorized"]["envs"]}, 2 x T=100, then '
                f'{ex_rows["vectorized"]["lanes"] * HPO_N_EVAL} envs x 251 eval steps)'
                if system == 'cartpole' else ''))
+        row['env_extras_launches'] = xt_launches[PHYSICS[system]['name']]
+        row['env_extras_shape'] = (
+            f'B={B_EXTRAS} T={T_EXTRAS_RAND[system]}, the shared-parameter case beside '
+            'the randomized one' + (
+                f'; the pyb replay T={T_EXTRAS_MODES[QUAD_TYPE[system]]}'
+                if system != 'cartpole' else ''))
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

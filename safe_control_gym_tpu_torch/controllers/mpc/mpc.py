@@ -507,9 +507,8 @@ class MPC(BaseController):
             terminate_run_on_done=None):
         """A closed-loop episode with the current controller; returns the
         results dict (observations, states, actions, per-step errors and
-        solve times, and the RMSEs)."""
-        if render:
-            raise NotImplementedError('render: the viewer is not in this slice of the port')
+        solve times, and the RMSEs; with ``render``, each step's RGB frame
+        under ``frames``)."""
         if env is None:
             env = self.env
         if terminate_run_on_done is None:
@@ -544,6 +543,8 @@ class MPC(BaseController):
             goal_i = env.X_GOAL[i, :] if env.X_GOAL.ndim > 1 else env.X_GOAL
             self.results_dict['state_error'].append(env.state - goal_i)
             common_metric += info['mse']
+            if render:
+                self.results_dict['frames'].append(env.render('rgb_array'))
             i += 1
         self.results_dict['obs'] = np.vstack(self.results_dict['obs'])
         self.results_dict['state'] = np.vstack(self.results_dict['state'])

@@ -28,8 +28,20 @@ the clip ('action') or to the dynamics force, the physics kernel's force
 operand ('dynamics'), and clears ``adv_valid``. A batched learner writes the
 two fields itself; the shim's ``set_adversary_control`` buffers one action
 (clipped to ``adversary_action_space``, then scaled and offset) for its next
-step. Not in the port yet: the viewer and render, and randomized inertial
-properties.
+step.
+
+Domain randomization: with ``randomized_inertial_prop``, each env draws its
+own inertial parameters from ``INERTIAL_PROP_RAND_INFO`` (additive draws
+around the nominal values, ``_compile_rand_sampler``) at ``reset_batch``,
+and ``step_autoreset`` redraws those of the done envs only. The randomized
+fields of ``EnvState.dyn_params`` are then (B,) tensors; without it every
+field is a 0-d tensor shared by the batch.
+
+The viewer: ``gui=True`` keeps one matplotlib figure (``_LiveViewer``) that
+the shim redraws from ``_draw_state`` at every reset and step, live under an
+interactive backend and offscreen under Agg. ``render('rgb_array')``
+rasterizes the current state to an RGB frame; ``render('human')`` redraws
+the viewer. Both read the state on the host, one copy a frame.
 """
 
 from __future__ import annotations
@@ -69,7 +81,7 @@ class EnvState:
     """Per-env simulation state of a batch of B envs."""
     state: torch.Tensor       # (B, nx) physical state
     ctrl_step: torch.Tensor   # (B,) int32 control-step counter
-    dyn_params: Any           # inertial parameters, shared by the batch
+    dyn_params: Any           # inertial parameters: 0-d fields shared, (B,) per env
     dist_obs: torch.Tensor    # (B, state_size) per-episode disturbance state
     dist_act: torch.Tensor
     dist_dyn: torch.Tensor
@@ -169,11 +181,60 @@ class FuncEnv:
         return self.reset_batch(gen, 1)
 
 
+def _select_params(done, fresh, old):
+    """Per-env parameters: ``fresh``'s where ``done`` (B,), else ``old``'s.
+    Shared 0-d fields stay as they are."""
+    return dataclasses.replace(old, **{
+        f.name: torch.where(done, getattr(fresh, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(old) if getattr(old, f.name).ndim})
+
+
+class _LiveViewer:
+    """The window of a ``gui=True`` env: one matplotlib figure, cleared and
+    redrawn by the env at every reset and step. Under an interactive backend
+    it shows and flushes events at each update; under a headless one (Agg)
+    the same figure is drawn offscreen. ``frame_count`` counts the redraws."""
+
+    def __init__(self, title='safe-control-gym'):
+        import matplotlib
+        import matplotlib.pyplot as plt
+        self._plt = plt
+        backend = matplotlib.get_backend().lower()
+        self.interactive = not any(
+            backend.startswith(h) for h in
+            ('agg', 'pdf', 'svg', 'ps', 'cairo', 'template'))
+        self.fig, self.ax = plt.subplots(figsize=(5, 4), dpi=80)
+        self.frame_count = 0
+        manager = self.fig.canvas.manager
+        if manager is not None:
+            manager.set_window_title(title)
+        if self.interactive:
+            plt.ion()
+            self.fig.show()
+
+    def update(self, draw_fn):
+        """Clear the axes, let the env draw itself, flush."""
+        self.ax.cla()
+        draw_fn(self.ax)
+        self.ax.set_aspect('equal')
+        if self.interactive:
+            self.fig.canvas.draw_idle()
+            self.fig.canvas.flush_events()
+        else:
+            self.fig.canvas.draw()
+        self.frame_count += 1
+
+    def close(self):
+        self._plt.close(self.fig)
+
+
 class BenchmarkEnv:
-    """Stateful shim that builds the functional core. Subclass: CartPole."""
+    """Stateful shim that builds the functional core. Subclasses: CartPole,
+    Quadrotor."""
 
     NAME = 'base'
     DISTURBANCE_MODES: Dict[str, Dict] = {}
+    INERTIAL_PROP_RAND_INFO: Dict[str, Dict] = {}
     INIT_STATE_RAND_INFO: Dict[str, Dict] = {}
     TASK_INFO: Dict[str, Any] = {}
     AVAILABLE_CONSTRAINTS: Dict[str, Any] = {}
@@ -212,13 +273,9 @@ class BenchmarkEnv:
         # False: the step runs the physics kernel's plain PyTorch twin on
         # any device (the JAX package's opt-out of its Pallas kernel).
         self.pallas_physics = bool(pallas_physics)
-        if gui:
-            raise NotImplementedError('gui: the viewer is not in this slice of the port')
-        if randomized_inertial_prop:
-            raise NotImplementedError(
-                'randomized_inertial_prop: per-env inertial parameters come with '
-                'the domain-randomization slice of the port')
+        # gui=True: the viewer, built at the first reset.
         self.GUI = gui
+        self._viewer = None
         self.VERBOSE = verbose
         self.output_dir = output_dir
         self.NORMALIZED_RL_ACTION_SPACE = normalized_rl_action_space
@@ -246,7 +303,10 @@ class BenchmarkEnv:
             init_state_randomization_info if init_state_randomization_info
             is not None else self.INIT_STATE_RAND_INFO))
         self.inertial_prop = inertial_prop
-        self.RANDOMIZED_INERTIAL_PROP = False
+        self.RANDOMIZED_INERTIAL_PROP = bool(randomized_inertial_prop)
+        self.INERTIAL_PROP_RAND_INFO = copy.deepcopy(dict(
+            inertial_prop_randomization_info if inertial_prop_randomization_info
+            is not None else self.INERTIAL_PROP_RAND_INFO))
 
         # Constraints.
         self.CONSTRAINTS = constraints
@@ -335,6 +395,9 @@ class BenchmarkEnv:
     # Subclass hooks for the functional core (all batched)
     # ------------------------------------------------------------------
     def _nominal_dyn_params(self):
+        raise NotImplementedError
+
+    def _sample_dyn_params(self, gen, nominal, n: int):
         raise NotImplementedError
 
     def _nominal_init_state(self) -> np.ndarray:
@@ -431,6 +494,7 @@ class BenchmarkEnv:
         X_GOAL = self._x_goal
         done_on_oob = bool(getattr(self, 'done_on_out_of_bound', False))
         randomized_init = self.RANDOMIZED_INIT
+        randomized_prop = self.RANDOMIZED_INERTIAL_PROP
         stochastic = [ch for ch, dl in dists.items() if dl and dl.noise_size > 0]
 
         def fresh_states(gen, n):
@@ -449,7 +513,8 @@ class BenchmarkEnv:
             est = EnvState(
                 state=x0,
                 ctrl_step=torch.zeros((n,), dtype=torch.int32, device=dev),
-                dyn_params=nominal_params,
+                dyn_params=(self._sample_dyn_params(gen, nominal_params, n)
+                            if randomized_prop else nominal_params),
                 dist_obs=dist_init('observation', gen, n),
                 dist_act=dist_init('action', gen, n),
                 dist_dyn=dist_init('dynamics', gen, n),
@@ -534,9 +599,9 @@ class BenchmarkEnv:
 
         def step_autoreset(est: EnvState, actions, gen, drawn=None, fresh=None):
             """``step``, then every done env starts afresh: its state, counter,
-            disturbance state and adversary buffer come from a new
-            ``reset_batch`` draw, or from ``fresh``, a ``(EnvState, obs)`` of
-            the batch's size drawn beforehand."""
+            disturbance state, adversary buffer and randomized parameters come
+            from a new ``reset_batch`` draw, or from ``fresh``, a ``(EnvState,
+            obs)`` of the batch's size drawn beforehand."""
             n = est.state.shape[0]
             drawn = dict(drawn or {})
             for ch in stochastic:
@@ -552,6 +617,9 @@ class BenchmarkEnv:
                 dist_act=torch.where(done_col, fresh.dist_act, est.dist_act),
                 dist_dyn=torch.where(done_col, fresh.dist_dyn, est.dist_dyn),
                 adv_action=torch.where(done_col, fresh.adv_action, est.adv_action))
+            if randomized_prop:
+                est = est.replace(dyn_params=_select_params(out.done, fresh.dyn_params,
+                                                            est.dyn_params))
             obs = torch.where(done_col, fresh_obs, out.obs)
             return est, out, obs
 
@@ -588,7 +656,10 @@ class BenchmarkEnv:
         self.goal_reached = False
         self.out_of_bounds = False
         self.at_reset = False
-        return obs[0].cpu().numpy(), self._get_reset_info()
+        info = self._get_reset_info()
+        if self.GUI:
+            self._update_viewer()
+        return obs[0].cpu().numpy(), info
 
     def step(self, action):
         self._check_initial_reset()
@@ -618,8 +689,10 @@ class BenchmarkEnv:
         self.current_clipped_action = first(out.clipped_action)
         self.goal_reached = bool(out.goal_reached[0])
         self.out_of_bounds = bool(out.out_of_bounds[0])
-        return first(out.obs), float(out.reward[0]), bool(out.done[0]), \
-            self._build_info(out)
+        info = self._build_info(out)
+        if self.GUI:
+            self._update_viewer()
+        return first(out.obs), float(out.reward[0]), bool(out.done[0]), info
 
     def set_state(self, state):
         """Overwrite the physical state mid-episode (GP-MPC's data collection
@@ -669,12 +742,55 @@ class BenchmarkEnv:
         return info
 
     def _physical_parameters(self) -> Dict[str, Any]:
+        """This episode's inertial parameters (drawn at the reset where they
+        are randomized), one numpy scalar a field."""
         params = self._est.dyn_params
-        return {f.name: getattr(params, f.name).cpu().numpy()
+        return {f.name: getattr(params, f.name).reshape(-1)[0].cpu().numpy()
                 for f in dataclasses.fields(params)}
 
     def close(self):
-        pass
+        if self._viewer is not None:
+            self._viewer.close()
+            self._viewer = None
+
+    def _update_viewer(self):
+        """Draw the current state into the viewer, built at first use."""
+        if self._viewer is None:
+            self._viewer = _LiveViewer(title=type(self).__name__)
+        self._viewer.update(self._draw_state)
+
+    def render(self, mode='rgb_array'):
+        """The current state rasterized to an RGB frame (H, W, 3) uint8; with
+        ``mode='human'`` the viewer is redrawn instead and None returned."""
+        if mode == 'human':
+            self._update_viewer()
+            return None
+        fig, ax = self._render_figure(projection=None)
+        self._draw_state(ax)
+        ax.set_aspect('equal')
+        return self._frame(fig)
+
+    def _render_figure(self, projection):
+        """A 4 x 3 in figure at 80 dpi with one axes, under Agg unless the
+        viewer is interactive."""
+        import matplotlib
+        if self._viewer is None or not self._viewer.interactive:
+            matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+        fig = plt.figure(figsize=(4, 3), dpi=80)
+        return fig, fig.add_subplot(111, projection=projection)
+
+    @staticmethod
+    def _frame(fig):
+        """The figure's pixels as (H, W, 3) uint8; closes the figure."""
+        import matplotlib.pyplot as plt
+        fig.canvas.draw()
+        frame = np.asarray(fig.canvas.buffer_rgba())[:, :, :3].copy()
+        plt.close(fig)
+        return frame
+
+    def _draw_state(self, ax):
+        ax.text(0.5, 0.5, str(np.round(self.state, 2)), ha='center')
 
     @property
     def state_dim(self):

@@ -1,19 +1,26 @@
 """CartPole: the cartpole stabilization / tracking task, batched, in PyTorch.
 
-Port of ``safe_control_gym_tpu/envs/cartpole.py`` without the scene drawing. The physics advance of a batch goes through
+Port of ``safe_control_gym_tpu/envs/cartpole.py``. The physics advance of a
+batch with parameters shared by the batch goes through
 ``ops.physics_kernels.cartpole_advance`` (K1): its CUDA kernel for a batch on
 the card, its plain version for a batch on the CPU. That is the role the JAX
-package's ``custom_vmap`` rule plays for its Pallas kernel.
+package's ``custom_vmap`` rule plays for its Pallas kernel. With per-env
+randomized parameters (``randomized_inertial_prop``), or without
+``pallas_physics``, the step runs K1's plain twin on any device, as the JAX
+package runs its scan there; ``physics_route`` names the route taken.
 
 Parity with the JAX env: action scale 10 and normalization; state-space
 thresholds (x 2.4 m, theta 90 deg, doubled for the box); the tab-force
 dynamics disturbance at the pole COM; the RL reward on the wrapped angle and
 the noisy action, or the quadratic cost on the clipped action; done on goal /
-out of bounds; the weighted-MSE info.
+out of bounds; the weighted-MSE info; the additive randomization of the pole
+length, cart mass and pole mass; the scene drawing of ``render`` and the
+viewer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -45,6 +52,12 @@ class CartPole(BenchmarkEnv):
 
     DISTURBANCE_MODES = {'observation': {'dim': 4}, 'action': {'dim': 1},
                          'dynamics': {'dim': 2}}
+
+    INERTIAL_PROP_RAND_INFO = {
+        'pole_length': {'distrib': 'choice', 'args': [[1, 5, 10]]},
+        'cart_mass': {'distrib': 'uniform', 'low': 0.5, 'high': 1.5},
+        'pole_mass': {'distrib': 'uniform', 'low': 0.05, 'high': 0.15},
+    }
 
     INIT_STATE_RAND_INFO = {
         'init_x': {'distrib': 'uniform', 'low': -0.05, 'high': 0.05},
@@ -127,10 +140,14 @@ class CartPole(BenchmarkEnv):
         self._setup_symbolic()
         self._setup_constraints()
         self._setup_disturbances()
+        self._prop_sampler = _compile_rand_sampler(
+            self.INERTIAL_PROP_RAND_INFO, ['pole_length', 'cart_mass', 'pole_mass'])
         self._init_sampler = _compile_rand_sampler(
             self.INIT_STATE_RAND_INFO,
             ['init_x', 'init_x_dot', 'init_theta', 'init_theta_dot'])
         self._reward_weights()
+        self.physics_route = ('K1' if self.pallas_physics and not self.RANDOMIZED_INERTIAL_PROP
+                              else 'K1 plain twin')
         self._build_functional()
 
     # ------------------------------------------------------------------
@@ -227,6 +244,15 @@ class CartPole(BenchmarkEnv):
                               cart_mass=f32(self.CART_MASS),
                               gravity=f32(self.GRAVITY_ACC))
 
+    def _sample_dyn_params(self, gen, nominal: CartPoleParams, n: int) -> CartPoleParams:
+        """``n`` draws of the properties that INERTIAL_PROP_RAND_INFO randomizes
+        (of the pole length, cart mass and pole mass), each such field (n,);
+        the rest stay shared."""
+        names = [k for k in ('pole_length', 'cart_mass', 'pole_mass')
+                 if k in self.INERTIAL_PROP_RAND_INFO]
+        d = self._prop_sampler(gen, {k: getattr(nominal, k).expand(n) for k in names})
+        return dataclasses.replace(nominal, **{k: d[k].to(torch.float32) for k in names})
+
     def _nominal_init_state(self):
         return np.array([self.INIT_X, self.INIT_X_DOT, self.INIT_THETA,
                          self.INIT_THETA_DOT], dtype=np.float32)
@@ -252,12 +278,35 @@ class CartPole(BenchmarkEnv):
 
     def _advance(self, x, clipped_action, dyn_force, params):
         """PYB_STEPS_PER_CTRL semi-implicit-Euler substeps with the force and
-        the tab-force disturbance held (K1, or its plain twin without
-        ``pallas_physics``)."""
-        advance = cartpole_advance if self.pallas_physics else cartpole_advance_plain
+        the tab-force disturbance held (``physics_route``: K1, or its plain
+        twin, which also takes the (B, 4) parameters of randomized envs)."""
+        advance = cartpole_advance if self.physics_route == 'K1' else cartpole_advance_plain
         return advance(x.contiguous(), clipped_action[:, 0].contiguous(),
                        dyn_force.contiguous(), params.vector(),
                        self.PYB_STEPS_PER_CTRL, self.PYB_TIMESTEP)
+
+    def _draw_state(self, ax):
+        """The scene for ``render`` and the viewer: the track with its x
+        limits, the goal or the reference, the cart, the pole, the axle."""
+        from matplotlib.patches import Circle, Rectangle
+        x, _, theta, _ = np.asarray(self.state)
+        L = 2 * float(self.EFFECTIVE_POLE_LENGTH)
+        ax.plot([-2.5, 2.5], [0, 0], 'k-', lw=1)
+        for thr in (-self.x_threshold, self.x_threshold):
+            ax.plot([thr, thr], [-0.08, 0.08], 'k:', lw=1)
+        if self.TASK == Task.TRAJ_TRACKING and np.ndim(self.X_GOAL) == 2:
+            ax.plot(self.X_GOAL[:, 0], np.full(self.X_GOAL.shape[0], -0.12), 'g--', lw=0.8)
+            wp = min(int(self.ctrl_step_counter), self.X_GOAL.shape[0] - 1)
+            ax.plot([self.X_GOAL[wp, 0]], [-0.12], 'g^', ms=6)
+        else:
+            g = np.atleast_2d(self.X_GOAL)[0]
+            ax.plot([g[0]], [-0.12], 'g*', ms=10)
+        ax.add_patch(Rectangle((x - 0.15, -0.05), 0.3, 0.1, color='tab:blue'))
+        ax.plot([x, x + L * np.sin(theta)], [0.05, 0.05 + L * np.cos(theta)],
+                'r-', lw=3, solid_capstyle='round')
+        ax.add_patch(Circle((x, 0.05), 0.03, color='k', zorder=3))
+        ax.set_xlim(-2.6, 2.6)
+        ax.set_ylim(-0.5, 1.5)
 
     def _obs_transform(self, state):
         if self.obs_wrap_angle:

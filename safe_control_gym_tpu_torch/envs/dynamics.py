@@ -9,7 +9,9 @@ quadrotor ODEs ``quad1d_dynamics``, ``quad2d_dynamics`` and
 
 Every function takes states with any number of leading batch dimensions,
 (..., 4) for the cartpole, where the JAX versions act on one state under
-``vmap``. The ODEs do no in-place update and no host read, so
+``vmap``. A parameter field is a 0-d tensor, shared by the batch, or a (B,)
+tensor, one value an env (domain randomization); both broadcast against the
+(B, ...) states and inputs. The ODEs do no in-place update and no host read, so
 ``torch.func.jacfwd`` and ``vmap`` trace them. ``integrate_substeps`` is a
 Python loop where JAX has ``lax.scan``.
 """
@@ -35,6 +37,12 @@ def _f32(v):
     return field(default_factory=lambda: torch.tensor(v, dtype=torch.float32))
 
 
+def _rows(v):
+    """A parameter as a column against (B, k) operands: a (B,) field becomes
+    (B, 1); a shared 0-d field stays as it is."""
+    return v if v.ndim == 0 else v.unsqueeze(-1)
+
+
 class _Params:
     """``to(device)`` for a dataclass of float32 tensors."""
 
@@ -43,7 +51,10 @@ class _Params:
                              for f in fields(self)})
 
     def _stack(self, *names) -> torch.Tensor:
-        return torch.stack([getattr(self, n) for n in names]).to(torch.float32)
+        """The fields ``names`` side by side: (k,) where each is shared, (B, k)
+        where any is per env."""
+        fields_ = torch.broadcast_tensors(*[getattr(self, n) for n in names])
+        return torch.stack(fields_, dim=-1).to(torch.float32)
 
 
 @dataclass
@@ -57,7 +68,8 @@ class CartPoleParams(_Params):
 
     def vector(self) -> torch.Tensor:
         """(4,) float32 [pole_mass, cart_mass, pole_length, gravity]: the
-        parameter layout of the physics kernel (ops/physics_kernels.py)."""
+        parameter layout of the physics kernel (ops/physics_kernels.py); (B, 4)
+        where the parameters are per env."""
         return self._stack('pole_mass', 'cart_mass', 'pole_length', 'gravity')
 
 
@@ -172,24 +184,23 @@ def quad3d_dynamics(x, u, p: QuadParams):
     omega = x[..., 9:12]
     f = u
     m, g, L = p.mass, p.gravity, p.arm_length
-    inertia = torch.stack([p.Ixx, p.Iyy, p.Izz])
-    J = torch.diag(inertia)
-    Jinv = torch.diag(1.0 / inertia)
+    # (3,) shared or (B, 3) per env; a diagonal inertia acts entrywise.
+    inertia = torch.stack([p.Ixx, p.Iyy, p.Izz], dim=-1)
     gamma = p.km / p.kf
     R = rot_xyz(phi, theta, psi)
-    zero = torch.zeros_like(f[..., 0])
-    thrust = torch.stack([zero, zero, f[..., 0] + f[..., 1] + f[..., 2] + f[..., 3]], dim=-1)
+    total = f[..., 0] + f[..., 1] + f[..., 2] + f[..., 3]
     e3 = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype, device=x.device)
-    acc = (R @ thrust[..., None])[..., 0] / m - e3 * g
+    # R @ (0, 0, total) is R's third column times the total thrust.
+    acc = R[..., :, 2] * total[..., None] / _rows(m) - e3 * _rows(g)
     l_sq2 = L / _sqrt2(x)
     Mb = torch.stack([
         l_sq2 * (f[..., 0] + f[..., 1] - f[..., 2] - f[..., 3]),
         l_sq2 * (-f[..., 0] + f[..., 1] + f[..., 2] - f[..., 3]),
         gamma * (-f[..., 0] + f[..., 1] - f[..., 2] + f[..., 3]),
     ], dim=-1)
-    Jw = (J @ omega[..., None])[..., 0]
+    Jw = inertia * omega
     gyro = (skew(omega) @ Jw[..., None])[..., 0]
-    rate_dot = (Jinv @ (Mb - gyro)[..., None])[..., 0]
+    rate_dot = (1.0 / inertia) * (Mb - gyro)
     # Euler-angle kinematics: body rates -> Euler rates.
     sphi, cphi = torch.sin(phi), torch.cos(phi)
     tth, cth = torch.tan(theta), torch.cos(theta)
@@ -211,23 +222,24 @@ def cmd2pwm(thrust, p: QuadParams):
     n = thrust.shape[-1]
     n_motor = 4 // n
     thrust = torch.clamp(thrust, min=0.0)
-    motor_pwm = (torch.sqrt(thrust / n_motor / p.kf) - p.pwm2rpm_const) / p.pwm2rpm_scale
+    motor_pwm = (torch.sqrt(thrust / n_motor / _rows(p.kf)) - _rows(p.pwm2rpm_const)) \
+        / _rows(p.pwm2rpm_scale)
     if n == 1:
         motor_pwm = motor_pwm.expand(*motor_pwm.shape[:-1], 4)
     elif n == 2:
         motor_pwm = torch.cat([motor_pwm, motor_pwm.flip(-1)], dim=-1)
-    return torch.clamp(motor_pwm, p.pwm_min, p.pwm_max)
+    return torch.clamp(motor_pwm, _rows(p.pwm_min), _rows(p.pwm_max))
 
 
 def pwm2rpm(pwm, p: QuadParams):
     """Affine PWM -> RPM map."""
-    return p.pwm2rpm_scale * pwm + p.pwm2rpm_const
+    return _rows(p.pwm2rpm_scale) * pwm + _rows(p.pwm2rpm_const)
 
 
 def rpm2forces(rpm, p: QuadParams):
     """Per-motor forces (B, 4) and the net yaw torque (B,) from RPMs (B, 4)."""
-    forces = rpm ** 2 * p.kf
-    torques = rpm ** 2 * p.km
+    forces = rpm ** 2 * _rows(p.kf)
+    torques = rpm ** 2 * _rows(p.km)
     z_torque = -torques[..., 0] + torques[..., 1] - torques[..., 2] + torques[..., 3]
     return forces, z_torque
 

@@ -48,6 +48,9 @@ class DummyVecEnv(VecEnv):
         for env in self.envs:
             env.close()
 
+    def get_images(self):
+        return [env.render() for env in self.envs]
+
     def get_attr(self, attr_name, indices=None):
         return [getattr(self.envs[i], attr_name) for i in self._get_indices(indices)]
 

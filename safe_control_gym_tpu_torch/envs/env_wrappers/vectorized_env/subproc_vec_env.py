@@ -158,6 +158,9 @@ class SubprocVecEnv(VecEnv):
         return self._dispatch('env_method', (method_name, method_args or [],
                                              method_kwargs or {}))
 
+    def get_images(self):
+        return self._dispatch('env_method', ('render', [], {}))
+
     def get_env_random_state(self):
         return self._dispatch('get_random_state')
 

@@ -87,6 +87,17 @@ class TorchVecEnv(VecEnv):
         return [fn(*(method_args or []), **(method_kwargs or {}))
                 for _ in self._get_indices(indices)]
 
+    def get_images(self):
+        """Each env's frame, drawn by the template env from the batch's states
+        (read to the host in one copy)."""
+        saved = self.template.state
+        frames = []
+        for state in self._states.state.cpu().numpy():
+            self.template.state = state
+            frames.append(self.template.render())
+        self.template.state = saved
+        return frames
+
     def close_extras(self):
         self.template.close()
 

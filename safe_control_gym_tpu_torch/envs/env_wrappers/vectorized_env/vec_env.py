@@ -2,14 +2,18 @@
 
 Port of ``safe_control_gym_tpu/envs/env_wrappers/vectorized_env/vec_env.py``:
 the asynchronous protocol (``reset``, ``step_async``, ``step_wait``,
-``get_attr``, ``set_attr``, ``env_method``) that ``DummyVecEnv``,
-``SubprocVecEnv`` and ``TorchVecEnv`` implement. ``render`` and
-``get_images`` wait for the viewer.
+``get_attr``, ``set_attr``, ``env_method``, ``get_images``) that
+``DummyVecEnv``, ``SubprocVecEnv`` and ``TorchVecEnv`` implement, and
+``render``, every env's frame tiled into one image.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
+
+import numpy as np
+
+from safe_control_gym_tpu_torch.envs.env_wrappers.vectorized_env.vec_env_utils import tile_images
 
 __all__ = ['VecEnv', 'VecEnvWrapper']
 
@@ -62,8 +66,13 @@ class VecEnv(ABC):
     def env_method(self, method_name, method_args=None, method_kwargs=None, indices=None):
         raise NotImplementedError
 
+    def get_images(self):
+        """One RGB frame (H, W, 3) an env."""
+        raise NotImplementedError
+
     def render(self, mode='rgb_array'):
-        raise NotImplementedError('render: the viewer is not in this slice of the port')
+        """Every env's frame tiled into one image."""
+        return tile_images(np.stack(self.get_images()))
 
     def _get_indices(self, indices):
         if indices is None:
@@ -104,6 +113,9 @@ class VecEnvWrapper(VecEnv):
 
     def render(self, mode='rgb_array'):
         return self.venv.render(mode)
+
+    def get_images(self):
+        return self.venv.get_images()
 
     def get_attr(self, attr_name, indices=None):
         return self.venv.get_attr(attr_name, indices)

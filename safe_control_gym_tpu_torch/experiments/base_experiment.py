@@ -12,9 +12,10 @@ filter reasons in physical units.
 
 The JAX package's wrapper is a ``gymnasium.Wrapper``; the port has no
 gymnasium, so ``RecordDataWrapper`` is a plain class that hands every other
-attribute to the env it wraps. The port's envs have no viewer (they raise on
-``gui``), so there is no real-time pacing; ``visualization_time_multiplier``
-is accepted and not read. ``launch_training`` hands training to the parts'
+attribute to the env it wraps. An evaluation of a ``gui=True`` env is paced
+to ``visualization_time_multiplier`` times real time: each action after the
+first waits out the rest of ``1 / CTRL_FREQ / multiplier`` seconds since the
+last (None: unpaced). ``launch_training`` hands training to the parts'
 ``learn``.
 """
 
@@ -104,6 +105,9 @@ class BaseExperiment:
         self.verbose = verbose
         self.metric_extractor = MetricExtractor()
         self.MAX_STEPS = int(env.CTRL_FREQ * env.EPISODE_LEN_SEC)
+        # Real-time pacing of GUI evaluations.
+        self.visualization_time_multiplier = 1
+        self._last_step_wall = None
 
     def _parts(self):
         """(name, part) of the parts present, in the order reset and close
@@ -139,7 +143,11 @@ class BaseExperiment:
                        done_on_max_steps=None, log_freq=None, verbose=True,
                        visualization_time_multiplier=1, **kwargs):
         """Evaluate the controller for ``n_episodes`` or ``n_steps``;
-        returns (trajectory data, metrics)."""
+        returns (trajectory data, metrics). ``visualization_time_multiplier``
+        paces a ``gui=True`` env's steps (1 real time, 2 twice as fast, None
+        unpaced)."""
+        self.visualization_time_multiplier = visualization_time_multiplier
+        self._last_step_wall = None
         if not training:
             self.reset()
         trajs_data = self._execute_evaluations(log_freq=log_freq, n_episodes=n_episodes,
@@ -206,7 +214,20 @@ class BaseExperiment:
                 info)
             if ok:
                 action = self.env.normalize_action(certified)
+        self._pace_visualization()
         return action
+
+    def _pace_visualization(self):
+        """Sleep so that a GUI evaluation runs at the multiplier times real
+        time; no sleep for a headless env or a multiplier of None."""
+        mult = self.visualization_time_multiplier
+        now = time.time()
+        if self._last_step_wall is not None \
+                and getattr(self.env, 'GUI', False) is True and mult is not None:
+            elapsed = now - self._last_step_wall
+            time.sleep(max(0.0, 1.0 / self.env.CTRL_FREQ / mult - elapsed))
+            now = time.time()
+        self._last_step_wall = now
 
     def _evaluation_reset(self, seed=None):
         """Snapshot the results, then reset the env, the controller and the

@@ -15,7 +15,9 @@ Port of ``safe_control_gym_tpu/experiments/fused_eval.py``. Two paths:
 With ``use_kernel=None`` the kernel path is taken when the env lives on a
 CUDA device and the gates raise no ``ValueError``; errors from the kernel
 run itself propagate. Both paths return fleet statistics with the JAX
-package's keys, ``path`` included.
+package's keys, ``path`` included, and ``kernel_refusal``, the gate's
+message, where the gates sent a CUDA env to the per-step path (the 1D quad,
+a physics mode other than 'pyb', randomized inertial properties, ...).
 
     ctrl = make('sac', partial(make, 'quadrotor', device='cuda', **task_config),
                 **algo_config)
@@ -249,7 +251,8 @@ def evaluate_policy_fused(ctrl, env=None, batch=1024, n_steps=4096, seed=0,
 
     Returns a dict: ``path``, ``total_steps``, ``episodes``, ``ep_return_mean``,
     ``ep_length_mean``, ``steps_per_sec``, ``total_violations`` (constrained
-    envs), ``rmse`` (per-step path only) and ``per_env`` if asked.
+    envs), ``rmse`` (per-step path only), ``kernel_refusal`` (a CUDA env the
+    gates refused) and ``per_env`` if asked.
     """
     if mesh is not None:
         raise NotImplementedError('fused eval: sharding the env batch over devices '
@@ -257,13 +260,13 @@ def evaluate_policy_fused(ctrl, env=None, batch=1024, n_steps=4096, seed=0,
                                   'item 14)')
     env = env if env is not None else ctrl.env
     spec = policy_eval_spec(ctrl, env, stochastic=stochastic)
-    path = None
+    path = refusal = None
     if use_kernel is None:
         if env.device.type == 'cuda':
             try:
                 gates = _kernel_gates(spec, env, stochastic)
-            except ValueError:
-                gates = None                # outside coverage: the per-step path
+            except ValueError as exc:
+                gates, refusal = None, str(exc)   # outside coverage: the per-step path
             if gates is not None:           # errors of the kernel run propagate
                 totals, per_env, best = _kernel_eval(spec, env, batch, n_steps, seed,
                                                      stochastic, n_reps, gates=gates)
@@ -285,6 +288,8 @@ def evaluate_policy_fused(ctrl, env=None, batch=1024, n_steps=4096, seed=0,
         out['total_violations'] = int(violations)
     if mse is not None:
         out['rmse'] = float(np.sqrt(mse / total_steps))
+    if refusal is not None:
+        out['kernel_refusal'] = refusal
     if return_per_env:
         out['per_env'] = per_env
     return out

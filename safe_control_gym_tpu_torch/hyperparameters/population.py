@@ -146,16 +146,31 @@ def _dist(params, obs, activation):
 
 # -- EnvState rows -------------------------------------------------------
 
+def _batched_params(params) -> List[str]:
+    """The per-env (batched) fields of an inertial-parameter set; the 0-d
+    ones are shared by the batch."""
+    return [f.name for f in dataclasses.fields(params) if getattr(params, f.name).ndim]
+
+
 def _map_state(est: EnvState, fn) -> EnvState:
-    """``fn`` over every batched field (``dyn_params`` is shared)."""
-    return est.replace(**{f.name: fn(getattr(est, f.name)) for f in dataclasses.fields(est)
-                          if f.name != 'dyn_params'})
+    """``fn`` over every batched field, per-env inertial parameters included."""
+    params = est.dyn_params
+    params = dataclasses.replace(params, **{k: fn(getattr(params, k))
+                                            for k in _batched_params(params)})
+    return est.replace(dyn_params=params, **{
+        f.name: fn(getattr(est, f.name)) for f in dataclasses.fields(est)
+        if f.name != 'dyn_params'})
 
 
 def _cat_states(states: List[EnvState], dim=0) -> EnvState:
     first = states[0]
-    return first.replace(**{f.name: torch.cat([getattr(s, f.name) for s in states], dim)
-                            for f in dataclasses.fields(first) if f.name != 'dyn_params'})
+    params = [s.dyn_params for s in states]
+    return first.replace(
+        dyn_params=dataclasses.replace(first.dyn_params, **{
+            k: torch.cat([getattr(p, k) for p in params], dim)
+            for k in _batched_params(first.dyn_params)}),
+        **{f.name: torch.cat([getattr(s, f.name) for s in states], dim)
+           for f in dataclasses.fields(first) if f.name != 'dyn_params'})
 
 
 def per_step(est: EnvState, obs: torch.Tensor, steps: int):

@@ -96,11 +96,11 @@ def cartpole_advance_plain(states, forces, tab_forces, params,
                            n_substeps: int, dt: float):
     """The plain version of K1. ``states`` (B, 4), ``forces`` (B,),
     ``tab_forces`` (B, 2), ``params`` (4,) [pole_mass, cart_mass,
-    pole_length, gravity]; returns the (B, 4) states one control step later."""
+    pole_length, gravity], or (B, 4), one row an env (the kernel takes only
+    the shared (4,)); returns the (B, 4) states one control step later."""
     x, xd, th, thd = cartpole_substeps(
         states[:, 0], states[:, 1], states[:, 2], states[:, 3], forces,
-        tab_forces[:, 0], tab_forces[:, 1], params[0], params[1], params[2],
-        params[3], n_substeps, dt)
+        tab_forces[:, 0], tab_forces[:, 1], *params.unbind(-1), n_substeps, dt)
     return torch.stack([x, xd, th, thd], dim=1)
 
 

@@ -6,7 +6,9 @@ batch is passed as a dict of numpy arrays (``state``, ``ctrl_step``, the
 PRNG ``key`` has no counterpart (the port takes ``torch.Generator``\\ s) and is
 ignored; the adversary buffers (``adv_action``, ``adv_valid``) carry across.
 The parameter type follows the fields: ``mass`` makes ``QuadParams``, else
-``CartPoleParams``.
+``CartPoleParams``. A field that holds one value for the whole batch becomes
+a shared 0-d tensor, one that varies over the batch (randomized inertial
+properties) a (B,) tensor.
 
 An RL actor's parameters (``mlp_init`` layout, a list of ``{'w', 'b'}``) and a
 frozen observation normalizer carry across as copies. PPO's training state
@@ -41,17 +43,15 @@ __all__ = ['cartpole_params_from_numpy', 'quad_params_from_numpy',
 
 def _params_from_numpy(cls, d, device):
     """``cls`` from a dict of numpy scalars or per-env arrays, one entry per
-    field. The port shares one parameter set across a batch, so per-env
-    arrays must hold one value."""
+    field: a 0-d tensor where the field holds one value, else (B,)."""
     dev = resolve_device(device)
     out = {}
     for f in fields(cls):
         v = np.asarray(d[f.name], np.float32).ravel()
-        if v.size == 0 or np.any(v != v[0]):
-            raise NotImplementedError(
-                f'{f.name}: per-env inertial parameters come with the '
-                'domain-randomization slice of the port')
-        out[f.name] = torch.tensor(v[0], dtype=torch.float32, device=dev)
+        if v.size == 0:
+            raise ValueError(f'{f.name}: an empty parameter array')
+        out[f.name] = torch.tensor(v[0] if np.all(v == v[0]) else v, dtype=torch.float32,
+                                   device=dev)
     return cls(**out)
 
 

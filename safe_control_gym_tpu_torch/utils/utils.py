@@ -4,14 +4,14 @@ Port of ``safe_control_gym_tpu/utils/utils.py``: ``ConfigDict`` (the
 ``munch.Munch`` role), ``munchify``/``unmunchify``, ``read_file``,
 ``merge_dict``, ``deep_set``, ``set_seed`` (``random``, numpy and torch),
 ``set_seed_from_config``, ``get_random_state``/``set_random_state``,
-``timestamp``, ``mkdirs``, ``set_dir_from_config``, ``unwrap_wrapper`` and
-``is_wrapped``. YAML goes through ``utils/yaml_io.py``, since the machines the
-port runs on need not have PyYAML.
+``timestamp``, ``mkdirs``, ``set_dir_from_config``, ``save_video``,
+``unwrap_wrapper`` and ``is_wrapped``. YAML goes through ``utils/yaml_io.py``,
+since the machines the port runs on need not have PyYAML.
 
 Left out: ``enable_persistent_compile_cache``, which configures JAX's compile
-cache and has no counterpart here; ``restore_prng_key``, which restores a JAX
-PRNG key (the port's checkpoints restore ``torch.Generator`` states,
-``utils/checkpoint.py``); and ``save_video``, which waits for the viewer.
+cache and has no counterpart here, and ``restore_prng_key``, which restores a
+JAX PRNG key (the port's checkpoints restore ``torch.Generator`` states,
+``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from safe_control_gym_tpu_torch.utils import yaml_io
 __all__ = [
     'ConfigDict', 'munchify', 'unmunchify', 'read_file', 'merge_dict',
     'deep_set', 'set_seed', 'set_seed_from_config', 'set_dir_from_config',
-    'get_random_state', 'set_random_state', 'mkdirs', 'unwrap_wrapper',
+    'get_random_state', 'set_random_state', 'mkdirs', 'save_video', 'unwrap_wrapper',
     'is_wrapped', 'timestamp',
 ]
 
@@ -186,6 +186,25 @@ def set_dir_from_config(config) -> None:
         yaml_io.dump(unmunchify(config), f)
     with open(os.path.join(base, 'cmd.txt'), 'a') as f:
         f.write(' '.join(sys.argv) + '\n')
+
+
+def save_video(name: str, frames, fps: int = 20) -> None:
+    """Save HxWx3 uint8 frames as a .gif or .mp4 through imageio; where
+    imageio is missing, every len(frames) // 16-th frame goes to
+    ``<name>_<i>.png`` through matplotlib instead, with a printed warning."""
+    assert name.endswith('.gif') or name.endswith('.mp4'), \
+        'Video name must end in .gif or .mp4.'
+    try:
+        import imageio
+        imageio.mimsave(name, frames, fps=fps)
+    except ImportError:
+        import matplotlib
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+        base = os.path.splitext(name)[0]
+        for i, frame in enumerate(frames[:: max(1, len(frames) // 16)]):
+            plt.imsave(f'{base}_{i:03d}.png', frame)
+        print(f'[WARNING] imageio unavailable; dumped frames to {base}_*.png')
 
 
 def unwrap_wrapper(env, wrapper_class):

@@ -4,6 +4,7 @@ both packages started from one state (states atol 1e-4; done, violation and
 step counts exact)."""
 
 import dataclasses
+from functools import partial
 import json
 import os
 
@@ -248,9 +249,11 @@ def test_converter_carries_the_jax_state():
     np.testing.assert_array_equal(est.ctrl_step.numpy(), d['ctrl_step'])
     assert est.ctrl_step.dtype == torch.int32
     assert float(est.dyn_params.pole_length) == pytest.approx(0.5)
-    with pytest.raises(NotImplementedError):
-        cartpole_params_from_numpy(dict(d['dyn_params'], pole_mass=np.array([0.1, 0.2])),
-                                   'cpu')
+    # Per-env parameters (randomized envs) carry across as (B,) tensors.
+    per_env = cartpole_params_from_numpy(dict(d['dyn_params'], pole_mass=np.array([0.1, 0.2])),
+                                         'cpu')
+    assert per_env.pole_mass.tolist() == pytest.approx([0.1, 0.2])
+    assert per_env.pole_length.ndim == 0
     # The adversary buffers carry across.
     adv = np.random.default_rng(1).normal(size=(8, 4)).astype(np.float32)
     est = env_state_from_numpy(dict(d, adv_action=adv, adv_valid=np.ones(8, bool)), 'cpu')
@@ -260,5 +263,19 @@ def test_converter_carries_the_jax_state():
 
 @pytest.mark.parametrize('over', [dict(randomized_inertial_prop=True), dict(gui=True)])
 def test_out_of_slice_configs_raise(over):
-    with pytest.raises(NotImplementedError):
-        tmake('cartpole', device='cpu', **dict(BASE, **over))
+    """The configs the earlier slices refused (randomized inertial
+    properties, the viewer) now build and step as JAX's do, and a malformed
+    ``inertial_prop`` still raises in both packages."""
+    je = jmake('cartpole', **dict(BASE, **over))
+    te = tmake('cartpole', device='cpu', **dict(BASE, **over))
+    _, jinfo = je.reset()
+    _, info = te.reset()
+    assert set(info['physical_parameters']) == set(jinfo['physical_parameters'])
+    obs, _, _, _ = te.step(np.zeros(1, np.float32))
+    assert np.isfinite(obs).all()
+    assert (te._viewer is not None) == bool(over.get('gui'))
+    te.close()
+    je.close()
+    for make in (jmake, partial(tmake, device='cpu')):
+        with pytest.raises(ValueError):
+            make('cartpole', **dict(BASE, inertial_prop=[0.5, 0.1], **over))

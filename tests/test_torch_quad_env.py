@@ -9,6 +9,7 @@ matmul scan and the port by the kernels' closed form; they differ by about
 2e-5 a step."""
 
 import dataclasses
+from functools import partial
 import json
 import os
 
@@ -199,12 +200,25 @@ def test_converter_carries_the_quad_state():
     for f in dataclasses.fields(est.dyn_params):
         want = np.asarray(d['dyn_params'][f.name], np.float32).ravel()[0]
         assert float(getattr(est.dyn_params, f.name)) == float(want), f.name
-    with pytest.raises(NotImplementedError):
-        quad_params_from_numpy(dict(d['dyn_params'], mass=np.array([0.02, 0.03])), 'cpu')
+    # Per-env parameters (randomized envs) carry across as (B,) tensors.
+    per_env = quad_params_from_numpy(dict(d['dyn_params'], mass=np.array([0.02, 0.03])), 'cpu')
+    assert per_env.mass.tolist() == pytest.approx([0.02, 0.03])
+    assert per_env.Iyy.ndim == 0
 
 
 @pytest.mark.parametrize('over', [dict(quad_type=1), dict(physics='pyb_drag'),
                                   dict(physics='dyn'), dict(randomized_inertial_prop=True)])
 def test_out_of_slice_configs_raise(over):
-    with pytest.raises(NotImplementedError):
-        tmake('quadrotor', device='cpu', **dict(_base(2), **over))
+    """The configs the earlier slices refused (the 1D quad, the physics
+    modes other than 'pyb', randomized inertial properties) now build and
+    take the general advance; a malformed ``inertial_prop`` still raises in
+    both packages."""
+    kw = dict(_base(2), **over)
+    te = tmake('quadrotor', device='cpu', **kw)
+    assert te.physics_route == 'general'
+    te.reset()
+    obs, _, _, _ = te.step(te.U_GOAL)
+    assert np.isfinite(obs).all()
+    for make in (jmake, partial(tmake, device='cpu')):
+        with pytest.raises(ValueError):
+            make('quadrotor', **dict(kw, inertial_prop=[0.1, 0.2, 0.3]))
