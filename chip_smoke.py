@@ -5,14 +5,15 @@ model-based controllers (LQR, iLQR, PID), the MPC family (MPC, linear MPC,
 MPC_ACADOS), GP-MPC with its batch and the scenario solve, the safety
 filters (linear MPSC, CBF, CBF-NN), SAC and DDPG training, RARL, RAP and
 SafeExplorerPPO with the env's adversary channel, the experiment layer
-(train_rl_controller, the vectorized envs, HPO with population PPO) and the
+(train_rl_controller, the vectorized envs, HPO with population PPO), the
 env's remaining features (the 1D quad, the physics modes, randomized
-inertial properties, rendering) through the port's entry points.
+inertial properties, rendering) and the multi-GPU paths over
+torch.distributed (on this one card) through the port's entry points.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety,
                                             # off_policy, robust, experiment,
-                                            # env_extras alone
+                                            # env_extras, multigpu alone
                                             # (comma-separated), no result
                                             # line
 
@@ -268,7 +269,23 @@ Phases, one JSON line each:
                env's viewer redrawn at every reset and step; each
                case's ms a step (CUDA events around the card's step alone),
                K1-K3 launches a step and physics route;
- 19. kernels   one entry per kernel with its launches, error, times and bound
+ 19. multigpu  the sharded paths (parallel/sharding.py) on this one card, a
+               witness of correctness, not of scaling: one NCCL rank (world
+               size 1) in this process and, started meanwhile through
+               parallel/launch.spawn_local, two worlds (MG_GLOO_GROUPS) of two
+               gloo ranks sharing cuda:0; each case against the same call on
+               one unsharded rank: PPO dp and dp x tp on a (1, 2) mesh on
+               ppo_cartpole (64 x 150, 64 wide) for MG_PPO_ITERATIONS of
+               MG_PPO_EPOCHS epochs, SAC dp on sac_cartpole (256 wide) to
+               MG_SAC_STEPS, one RARL cycle, the linear MPSC certification
+               and the NMPC sweep at MG_B, a population of two lanes a rank,
+               evaluate_fused(mesh=...) of the committed cartpole PPO at MG_B
+               over MG_EVAL_T steps; the gates (parameters, replicas and Adam
+               states bit-identical, the tp split, flags, reward sums, done
+               counts, K1 launches on each rank equal to the unsharded run's)
+               and the reported spreads are listed at MG_WORLD; each case's
+               seconds on each rank beside the unsharded rank's;
+ 20. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
                control, mpc_launches, mpc_shape and grad_max_abs_err, from
@@ -277,8 +294,10 @@ Phases, one JSON line each:
                off_policy_launches and off_policy_shape, from phase
                off_policy, robust_launches and robust_shape, from phase
                robust, experiment_launches and experiment_shape, from phase
-               experiment, and env_extras_launches and env_extras_shape,
-               from phase env_extras; K4's policy row also with off_policy_launches, the
+               experiment, env_extras_launches and env_extras_shape,
+               from phase env_extras, and multigpu_launches and
+               multigpu_shape, the two gloo ranks' launches in phase
+               multigpu; K4's policy row also with off_policy_launches, the
                trained actors' evaluate_fused launches).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
@@ -296,7 +315,7 @@ import sys
 import multiprocessing
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 _T_START = time.perf_counter()   # before torch's import: the command's own clock
 
@@ -654,6 +673,54 @@ EXTRAS_QUAD = {1: ('quadrotor', dict(quad_type=1, task_info={'stabilization_goal
                3: ('quadrotor', dict(quad_type=3, task_info={'stabilization_goal': [0, 0, 1]}))}
 EXTRAS_BASE = dict(seed=0, ctrl_freq=50, pyb_freq=1000, episode_len_sec=2)
 NU_QUAD = {1: 1, 2: 2, 3: 4}
+
+# Phase multigpu: the sharded paths (parallel/sharding.py) on this one card,
+# with one NCCL rank (the real communicator, world size 1) and with two gloo
+# ranks that share cuda:0; every case against the same call on one
+# unsharded rank. A witness of correctness: one card cannot show scaling.
+# PPO on ppo_cartpole (64 envs x 150 steps, 64 wide) for MG_PPO_ITERATIONS
+# of MG_PPO_EPOCHS epochs (10 in the config), data parallel and dp x tp on
+# a (1, 2) mesh; SAC on sac_cartpole (256 wide) through its warm-up and one
+# training iteration (100 updates); one RARL cycle of the robust phase's
+# config; the certification batch of the constrained cartpole (phase
+# safety's system, the committed P) and the NMPC sweep of
+# batched_mpc_demo.py at MG_B; a population of the lanes [a, b] a rank at
+# phase experiment's widths, one iteration of MG_PPO_EPOCHS epochs;
+# evaluate_fused of the committed cartpole PPO at MG_B over MG_EVAL_T
+# steps. The learners' parameters are
+# held to MG_PARAMS_ATOL (tests/test_multichip_training.py's bar), the eval's
+# per-env reward sums to MG_EVAL_ATOL with every done count equal, the
+# population's lanes to MG_POP_ATOL; replicas and Adam states bit-identical
+# on the ranks. The solvers: every flag equal to the whole batch's on one
+# rank, and each rank's actions within MG_SOLVER_ATOL
+# (tests/test_sharded_solvers.py's bar) of one unsharded rank's solve of
+# the same rows. The card's batched ADMM answer depends on the batch's size
+# on a few rows (cuBLAS and the batched factorizations pick their
+# algorithms by shape), and one rank's whole batch moves by more than
+# MG_SOLVER_ATOL on some rows under a MG_PERTURB change of its input, so
+# the sharded actions' distance to the whole batch's is reported beside
+# that spread, not gated. The gloo ranks run as MG_GLOO_GROUPS, two
+# worlds of two ranks at once.
+MG_WORLD = 2
+MG_PPO_ITERATIONS = 1
+MG_PPO_EPOCHS = 2
+MG_SAC_STEPS = 1152     # the warm-up's 1000 steps (11 collects of 12 x 8) and one more
+MG_RARL_STEPS = 2048    # one cycle: 2 + 2 iterations of 8 x 64
+MG_B = 4096
+MG_EVAL_T = 250
+MG_POP = dict(rollout_batch_size=16, rollout_steps=100, iterations=1,
+              opt_epochs=MG_PPO_EPOCHS, mini_batch_size=64, hidden_dim=64, n_eval=5)
+MG_POP_SEEDS = [100, 101]
+MG_PARAMS_ATOL = 5e-5
+MG_SOLVER_ATOL = 1e-3
+MG_EVAL_ATOL = 1e-5
+MG_POP_ATOL = 1e-5
+MG_PERTURB = 1e-7
+MG_TIMEOUT_S = 120
+# The certification's first batch in a process takes about 15 s (the first
+# captured ADMM stages and the solvers' set-up), so it shares its world
+# with the short cases.
+MG_GLOO_GROUPS = (['ppo', 'ppo_tp', 'rarl', 'population', 'sac'], ['certify', 'nmpc', 'eval'])
 
 # Operations per env and physics substep (sin and cos count one each):
 # cartpole: sin, cos, the reciprocal and 28 multiplies, adds and subtracts;
@@ -4024,6 +4091,315 @@ def _extras_render(dev, smi):
     return row
 
 
+def _sync(dev):
+    if torch.device(dev).type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def _mg_leaves(tree):
+    from safe_control_gym_tpu_torch.math.optim import tree_leaves
+    return [t.detach().cpu().numpy() for t in tree_leaves(tree)]
+
+
+def _mg_adam(state):
+    return [state['count'].cpu().numpy()] + _mg_leaves(state['mu']) + _mg_leaves(state['nu'])
+
+
+def _mg_ppo(dev, mesh, out_dir, model_axis=None):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    env_id, task_cfg, algo_cfg = eval_config('ppo', 'cartpole')
+    algo_cfg = dict(algo_cfg, max_env_steps=MG_PPO_ITERATIONS * 64 * 150, eval_interval=0,
+                    log_interval=0, save_interval=0, opt_epochs=MG_PPO_EPOCHS)
+    ctrl = make('ppo', functools.partial(make, env_id, device=dev, **task_cfg), training=True,
+                output_dir=out_dir, seed=0, checkpoint_path='', **algo_cfg)
+    ctrl.reset()
+    if mesh is not None:
+        ctrl.shard_over(mesh, model_axis=model_axis)
+    ctrl.learn()
+    ag = ctrl.agent
+    return dict(params=_mg_leaves(ag.full_params()), shards=_mg_leaves(ag.params),
+                replicas=_mg_leaves(ag.params) + _mg_adam(ag.actor_opt_state)
+                + _mg_adam(ag.critic_opt_state), envs=ctrl._obs.shape[0],
+                last=ctrl.last_results)
+
+
+def _mg_sac(dev, mesh, out_dir):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    env_id, task_cfg, algo_cfg = eval_config('sac', 'cartpole')
+    ctrl = make('sac', functools.partial(make, env_id, device=dev, **task_cfg), training=True,
+                output_dir=out_dir, seed=0, checkpoint_path='',
+                **dict(algo_cfg, max_env_steps=MG_SAC_STEPS, eval_interval=0, log_interval=0,
+                       save_interval=0))
+    ctrl.reset()
+    if mesh is not None:
+        ctrl.shard_over(mesh)
+    ctrl.learn()
+    ag = ctrl.agent
+    return dict(params=_mg_leaves(ag.full_params()), replicas=_mg_leaves(ag.train_state()),
+                envs=ctrl._obs.shape[0], last=ctrl.last_results)
+
+
+def _mg_rarl(dev, mesh, out_dir):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    ctrl = make('rarl', functools.partial(make, 'cartpole', device=dev, **RARL_TASK),
+                training=True, output_dir=out_dir, seed=1, checkpoint_path='',
+                max_env_steps=MG_RARL_STEPS, log_interval=0, **RARL_ALGO)
+    ctrl.reset()
+    if mesh is not None:
+        ctrl.shard_over(mesh)
+    ctrl.learn()
+    agents = (ctrl.agent, ctrl.adversary)
+    return dict(params=[p for a in agents for p in _mg_leaves(a.params)],
+                replicas=[p for a in agents for p in _mg_leaves(a.params)
+                          + _mg_adam(a.actor_opt_state)], envs=ctrl._obs.shape[0],
+                last=ctrl.last_results)
+
+
+def _mg_solve(solver, call, rows, mesh, plans):
+    """``call`` on the batch ``rows`` (arrays of MG_B rows): sharded over
+    ``mesh`` with, beside it, this rank's rows solved unsharded; or, with no
+    mesh, the whole batch and its answers under the two MG_PERTURB changes
+    of the first array."""
+    if mesh is None:
+        u, ok = call(*rows)
+        moved = [call(rows[0] * np.float32(1 + e), *rows[1:])[0] - u
+                 for e in (MG_PERTURB, -MG_PERTURB)]
+        move = np.max(np.abs(np.stack(moved)), axis=0).reshape(len(u), -1).max(axis=1)
+        return dict(u=u, flags=ok, rows=plans()[0].shape[0], spread=float(move.max()),
+                    spread_rows=int((move > MG_SOLVER_ATOL).sum()))
+    solver.shard_over(mesh, axis_name='env')
+    u, ok = call(*rows)
+    local = plans()[0].shape[0]
+    lo, hi = mesh.rows(len(u), 'env')
+    solver._solve_mesh = None
+    own_u, own_ok = call(*[r[lo:hi] for r in rows])
+    return dict(u=u, flags=ok, rows=local, block=(lo, hi), own_u=own_u, own_flags=own_ok)
+
+
+def _mg_certify(dev, mesh, out_dir):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    sf = make('linear_mpsc', functools.partial(make, 'cartpole', device=dev, **CERT_DEMO_TASK),
+              **dict(CERT_DEMO_SF, n_samples=4))
+    sf.load(os.path.join(ROOT, 'examples', 'mpsc', 'models', 'linear_mpsc_cartpole.pkl'))
+    rng = np.random.default_rng(3)
+    states = rng.normal(0, 0.08, (MG_B, 4)).astype(np.float32)
+    actions = rng.uniform(-1, 1, (MG_B, 1)).astype(np.float32)
+    return _mg_solve(sf, sf.certify_action_batch, (states, actions), mesh,
+                     lambda: sf.batch_plans)
+
+
+def _mg_nmpc(dev, mesh, out_dir):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    ctrl = make('mpc', functools.partial(make, 'cartpole', device=dev, **MPC_DEMO_TASK),
+                **MPC_DEMO_ALGO)
+    ctrl.reset()
+    x0 = np.random.default_rng(5).uniform(-0.3, 0.3, (MG_B, 4)).astype(np.float32)
+    return _mg_solve(ctrl, ctrl.select_action_batch, (x0,), mesh,
+                     lambda: ctrl.batch_horizons)
+
+
+def _mg_population(dev, mesh, out_dir):
+    from safe_control_gym_tpu_torch.hyperparameters import population as popmod
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    from safe_control_gym_tpu_torch.utils.registration import make
+    _, task_cfg, _ = eval_config('ppo', 'cartpole')
+    world = 1 if mesh is None else mesh.shape['env']
+    ev = popmod.make_population_ppo_evaluator(
+        functools.partial(make, 'cartpole', **task_cfg), device=dev, mesh=mesh,
+        axis_name='env', **MG_POP)
+    hp = {'actor_lr': np.array([3e-4, 1e-3] * world),
+          'entropy_coef': np.array([0.01, 0.02] * world)}
+    return dict(returns=ev(hp, MG_POP_SEEDS * world))
+
+
+def _mg_eval(dev, mesh, out_dir):
+    from safe_control_gym_tpu_torch.utils.registration import make
+    from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+    env_id, task_cfg, algo_cfg = eval_config('ppo', 'cartpole')
+    ctrl = make('ppo', functools.partial(make, env_id, device=dev, **task_cfg), **algo_cfg)
+    ctrl.load(_model_path('ppo', 'cartpole'))
+    res = ctrl.evaluate_fused(batch=MG_B, n_steps=MG_EVAL_T, seed=0, use_kernel=False if mesh
+                              is None else None, mesh=mesh, return_per_env=True, n_reps=0)
+    return dict(path=res['path'], reward_sum=res['per_env']['reward_sum'],
+                done_count=res['per_env']['done_count'], episodes=res['episodes'])
+
+
+MG_CASES = {'ppo': _mg_ppo, 'ppo_tp': functools.partial(_mg_ppo, model_axis='model'),
+            'sac': _mg_sac, 'rarl': _mg_rarl, 'certify': _mg_certify, 'nmpc': _mg_nmpc,
+            'population': _mg_population, 'eval': _mg_eval}
+
+
+def _mg_run(names, dev, mesh, out_dir):
+    """Each named case on this rank (``mesh`` None: unsharded), with its
+    seconds (host clock to a synchronize) and launch counts."""
+    from safe_control_gym_tpu_torch.parallel import sharding
+    out = {}
+    for name in names:
+        case_mesh = mesh
+        if mesh is not None and name == 'ppo_tp':
+            case_mesh = sharding.make_dp_tp_mesh(n_model=mesh.world_size, device=dev)
+        _sync(dev)
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = MG_CASES[name](dev, case_mesh, os.path.join(out_dir, name))
+        _sync(dev)
+        res['seconds'] = time.perf_counter() - t0
+        res['launches'] = _launches()
+        out[name] = res
+    return out
+
+
+def _mg_rank(names, out_dir):
+    """A spawned rank (parallel/launch.spawn_local): its cases on an 'env'
+    mesh of every rank, on this rank's CUDA device."""
+    from safe_control_gym_tpu_torch.parallel import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda', torch.cuda.current_device())
+    mesh = sharding.make_env_mesh(device=dev)
+    return _mg_run(names, dev, mesh, os.path.join(out_dir, f'rank{mesh.rank}'))
+
+
+def _mg_nccl_one(names, out_dir):
+    """The cases on a world of one NCCL rank, in this process."""
+    import datetime
+    import torch.distributed as dist
+    from safe_control_gym_tpu_torch.parallel.launch import free_port
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{free_port()}', rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=MG_TIMEOUT_S))
+    try:
+        return [_mg_rank(names, out_dir)]
+    finally:
+        dist.destroy_process_group()
+
+
+def _mg_max_err(a, b):
+    return max(float(np.max(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64))))
+               for x, y in zip(a, b))
+
+
+def _mg_check(name, ranks, ref, world):
+    """The gates of case ``name`` over every rank's result against the
+    one-rank ``ref``; returns the row to print."""
+    r0 = ranks[0]
+    row = dict(seconds=[r['seconds'] for r in ranks], ref_seconds=ref['seconds'],
+               k1_launches=[r['launches']['cartpole_advance'] for r in ranks],
+               ref_k1_launches=ref['launches']['cartpole_advance'])
+    fails = []
+    if 'params' in r0:
+        err = _mg_max_err(r0['params'], ref['params'])
+        # Data parallel: every rank's parameters and Adam states are one
+        # replica. dp x tp on (1, W): the ranks' gathered parameters.
+        key = 'params' if name == 'ppo_tp' else 'replicas'
+        same = all(len(r[key]) == len(r0[key]) and all(
+            np.array_equal(x, y) for x, y in zip(r[key], r0[key])) for r in ranks)
+        row.update(params_max_abs_err=err, replicas_identical=same,
+                   envs=[r['envs'] for r in ranks], atol=MG_PARAMS_ATOL)
+        if not err <= MG_PARAMS_ATOL or not same:
+            fails.append('params')
+        if name == 'ppo_tp':
+            # (1, W) mesh: every rank steps all envs and holds 1/W of the
+            # hidden layers (the first layer's columns).
+            split = [r['shards'][1].shape for r in ranks]
+            row['first_layer_shards'] = [list(t) for t in split]
+            if world > 1 and (any(t != (4, 64 // world) for t in split) or np.array_equal(
+                    ranks[0]['shards'][1], ranks[-1]['shards'][1])):
+                fails.append('tp split')
+        # Every rank steps its envs once a step: as many K1 launches as the
+        # one-rank run, each over its envs.
+        want = row['ref_k1_launches']
+        if want <= 0 or any(n != want for n in row['k1_launches']):
+            fails.append('k1 launches')
+    if 'flags' in r0:
+        # Each rank's block of the gathered answer against that rank's
+        # unsharded solve of the same rows; the flags against the whole
+        # batch's on one rank.
+        block_err = max(_mg_max_err(r0['u'][r['block'][0]:r['block'][1]], r['own_u'])
+                        for r in ranks)
+        whole = np.abs(np.asarray(r0['u'], np.float64) - np.asarray(ref['u'], np.float64))
+        whole = whole.reshape(len(whole), -1).max(axis=1)
+        row.update(u_block_max_abs_err=block_err, atol=MG_SOLVER_ATOL,
+                   flags_equal=bool(all(np.array_equal(r['flags'], ref['flags'])
+                                        and np.array_equal(r['flags'], r0['flags'])
+                                        and np.array_equal(r0['flags'][r['block'][0]:r['block'][1]],
+                                                           r['own_flags']) for r in ranks)),
+                   rows_a_rank=[r['rows'] for r in ranks],
+                   feasible_share=float(np.mean(ref['flags'])),
+                   whole_batch_u_max_abs_err=float(whole.max()),
+                   whole_batch_rows_over_atol=int((whole > MG_SOLVER_ATOL).sum()),
+                   one_rank_perturbed_spread=ref['spread'],
+                   one_rank_perturbed_rows_over_atol=ref['spread_rows'],
+                   ranks_agree=all(np.array_equal(r['u'], r0['u']) for r in ranks))
+        if (not block_err <= MG_SOLVER_ATOL or not row['flags_equal'] or not row['ranks_agree']
+                or any(r['rows'] != MG_B // world for r in ranks)):
+            fails.append('solver')
+    if name == 'population':
+        got, want = r0['returns'], ref['returns']
+        # Lanes [a, b] a rank: every rank's pair against the one-rank pair.
+        err = max(_mg_max_err(got[2 * i:2 * i + 2], want) for i in range(world))
+        row.update(lanes=int(got.shape[0]), returns_max_abs_err=err, atol=MG_POP_ATOL,
+                   ranks_agree=all(np.array_equal(r['returns'], got) for r in ranks))
+        if not err <= MG_POP_ATOL or not row['ranks_agree'] or any(
+                n != row['ref_k1_launches'] for n in row['k1_launches']):
+            fails.append('population')
+    if name == 'eval':
+        err = _mg_max_err(r0['reward_sum'], ref['reward_sum'])
+        row.update(path=r0['path'], reward_sum_max_abs_err=err, atol=MG_EVAL_ATOL,
+                   done_counts_equal=bool(all(np.array_equal(r['done_count'], ref['done_count'])
+                                              for r in ranks)), episodes=r0['episodes'])
+        if (r0['path'] != 'per-step-scan-sharded' or not err <= MG_EVAL_ATOL
+                or not row['done_counts_equal']
+                or any(n != MG_EVAL_T for n in row['k1_launches'])):
+            fails.append('eval')
+    row['fails'] = fails
+    return row
+
+
+def multigpu(dev, smi):
+    """Phase multigpu: the sharded paths on one NCCL rank and on two gloo
+    ranks sharing the card, each case against one unsharded rank; see the
+    module docstring."""
+    from safe_control_gym_tpu_torch.parallel.launch import spawn_local
+    one = [n for n in MG_CASES if n != 'ppo_tp']
+    rows, failed = {}, []
+    with tempfile.TemporaryDirectory() as out_dir:
+        with ThreadPoolExecutor(len(MG_GLOO_GROUPS)) as pool:
+            # The gloo ranks start (about 8 s each to reach the card) while
+            # this process runs the references and the NCCL rank.
+            t0 = time.perf_counter()
+            gloo = [pool.submit(spawn_local, _mg_rank, MG_WORLD, backend='gloo',
+                                devices=['cuda:0'] * MG_WORLD,
+                                args=(names, os.path.join(out_dir, f'gloo{i}')),
+                                timeout=MG_TIMEOUT_S)
+                    for i, names in enumerate(MG_GLOO_GROUPS)]
+            ref = _mg_run([n for n in MG_CASES if n != 'ppo_tp'], dev, None,
+                          os.path.join(out_dir, 'ref'))
+            ref['ppo_tp'] = ref['ppo']      # the same unsharded call
+            nccl = _mg_nccl_one(one, os.path.join(out_dir, 'nccl'))
+            # Each rank's results of both worlds, by case.
+            gloo = [dict(kv for g in groups for kv in g.items())
+                    for groups in zip(*[f.result() for f in gloo])]
+            wall = time.perf_counter() - t0
+    for label, world, results in (('nccl', 1, nccl), ('gloo', MG_WORLD, gloo)):
+        for name in results[0]:
+            row = _mg_check(name, [r[name] for r in results], ref[name], world)
+            row.update(backend=label, world_size=world, device='cuda:0', card=smi,
+                       witness='correctness, not scaling: every rank shares one card')
+            rows[f'{label} {name}'] = row
+            emit('multigpu', case=name, **row)
+            if row['fails']:
+                failed.append(f'{label} {name}: {row["fails"]}')
+    # Each kernel's launches on the two gloo ranks, over every case.
+    launches = {k: sum(r[n]['launches'][k] for r in gloo for n in r)
+                for k in gloo[0]['ppo']['launches']}
+    emit('multigpu', wall_s=wall, launches=launches, card=smi)
+    if failed:
+        raise RuntimeError(f'multigpu: {failed}')
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4057,7 +4433,7 @@ def main():
             timed(phase, {'control': control, 'mpc': mpc, 'gp_mpc': gp_mpc,
                           'safety': safety, 'off_policy': off_policy,
                           'robust': robust, 'experiment': experiment,
-                          'env_extras': env_extras}[phase], dev, smi)
+                          'env_extras': env_extras, 'multigpu': multigpu}[phase], dev, smi)
         emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
              card=smi, phases=only)
         return
@@ -4078,6 +4454,7 @@ def main():
     rb_launches, rb_rows = timed('robust', robust, dev, smi)
     ex_launches, ex_rows = timed('experiment', experiment, dev, smi)
     xt_launches, _ = timed('env_extras', env_extras, dev, smi)
+    mg_launches, _ = timed('multigpu', multigpu, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -4200,6 +4577,12 @@ def main():
             'the randomized one' + (
                 f'; the pyb replay T={T_EXTRAS_MODES[QUAD_TYPE[system]]}'
                 if system != 'cartpole' else ''))
+        row['multigpu_launches'] = mg_launches[PHYSICS[system]['name']]
+        row['multigpu_shape'] = (
+            f'the {MG_WORLD} gloo ranks sharing the card: PPO (dp, and dp x tp on a (1, '
+            f'{MG_WORLD}) mesh) 64 x 150 x {MG_PPO_ITERATIONS} iteration, SAC and RARL, the '
+            f'population, evaluate_fused B={MG_B} T={MG_EVAL_T}; each rank its rows'
+            if system == 'cartpole' else 'not on the multigpu path')
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

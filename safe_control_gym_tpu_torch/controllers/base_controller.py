@@ -13,7 +13,10 @@ SafeExplorerPPO, RARL, RAP) have in common: the env from
 ``env_func(seed=seed)`` (on the device ``env_func`` gives it), the default
 config of the algorithm, the generator on the env's device, the logger, the
 device-timing marks, the batched deterministic evaluation, ``load`` through
-the port's restricted unpickler and ``evaluate_fused``.
+the port's restricted unpickler and ``evaluate_fused``; and, for the
+learners that ``shard_over`` a mesh (PPO, SAC, RARL, RAP), the N training
+envs as this rank's rows (``_shards``, a ``parallel/sharding.EnvShards``):
+their start, step and draws at the global width, and ``is_lead``.
 """
 
 from __future__ import annotations
@@ -136,6 +139,7 @@ class RLController(BaseController):
         self.device = self.env.device
         self.gen = torch.Generator(device=self.device).manual_seed(int(self.seed))
         self._logger = None
+        self._shards = None
 
     @property
     def logger(self):
@@ -155,6 +159,40 @@ class RLController(BaseController):
 
     def setup_results_dict(self):
         self.results_dict = {'obs': [], 'reward': [], 'done': [], 'info': [], 'action': []}
+
+    # -- the N training envs, whole or this rank's rows ----------------------
+    @property
+    def is_lead(self):
+        """Whether this process writes logs and checkpoints (rank 0, or not
+        sharded)."""
+        return self._shards is None or self._shards.mesh.rank == 0
+
+    def _start_envs(self):
+        """``(EnvState, obs)`` of the N training envs afresh (this rank's rows
+        when sharded), drawn from the generator."""
+        start = self.func_env.reset_batch(self.gen, self.N)
+        return self._shards.take(start) if self._shards else start
+
+    def _step_envs(self, est, act):
+        """``step_autoreset`` of the training envs (sharded: this rank's rows,
+        drawn at the global width)."""
+        if self._shards:
+            return self._shards.step(self.func_env, est, act, self.gen)
+        return self.func_env.step_autoreset(est, act, self.gen)
+
+    def _sample(self, dist, draws=None):
+        """A draw of ``dist`` for the training envs (at the global width when
+        sharded), or ``loc + scale * draws``, ``draws`` of all N envs."""
+        sh = self._shards
+        if draws is None:
+            return dist.sample(self.gen, rows=sh.draw_rows if sh else None)
+        return dist.loc + dist.scale * (sh.take(draws) if sh else draws)
+
+    def _whole_envs(self):
+        """The training envs' ``(EnvState, obs)`` of all N (gathered when
+        sharded: every rank calls it)."""
+        start = (self._env_states, self._obs)
+        return self._shards.gather(start) if self._shards else start
 
     def _tensor(self, obs):
         return torch.as_tensor(np.asarray(obs), dtype=torch.float32, device=self.device)

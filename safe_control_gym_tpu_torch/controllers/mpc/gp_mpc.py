@@ -46,6 +46,7 @@ from safe_control_gym_tpu_torch.controllers.mpc.gp_utils import (GaussianProcess
                                                                  kmeans_centriods, lhs_sample)
 from safe_control_gym_tpu_torch.controllers.mpc.linear_mpc import LinearMPC
 from safe_control_gym_tpu_torch.math.linalg import full_matmul_precision
+from safe_control_gym_tpu_torch.parallel.sharding import batch_split
 from safe_control_gym_tpu_torch.utils.checkpoint import CheckpointUnpickler, save_checkpoint
 
 __all__ = ['GPMPC']
@@ -460,6 +461,7 @@ class GPMPC(LinearMPC):
         return X_np.reshape(T + 1, nx), U_np.reshape(T, nu), float(res_v[0]), z_np, y_np
 
     # -- batched control -------------------------------------------------
+    @batch_split(1)
     def select_action_batch(self, obs_batch, step: int = 0, passes: int = 2):
         """B cold-started GP-MPC solves as one batched solve: GP-mean
         dynamics and chance-tightened constraints. Without a previous plan,

@@ -23,7 +23,10 @@ Port of ``safe_control_gym_tpu/controllers/mpc/mpc.py`` (``MPC``):
   under its own set.
 
 Every solve runs on the env's device (``partial(make, env_id, device=...)``).
-The JAX package's ``shard_over`` raises until ROADMAP item 14.
+``shard_over(mesh)`` splits the B problems of ``select_action_batch`` over
+``torch.distributed`` ranks (``parallel/sharding.batch_split``): each rank
+solves its rows and every rank returns the whole batch; GPMPC and LinearMPC
+inherit it.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from safe_control_gym_tpu_torch.math.linalg import (discretize_linear_system,
                                                     full_matmul_precision,
                                                     get_cost_weight_matrix)
 from safe_control_gym_tpu_torch.ops.qp import admm_qp
+from safe_control_gym_tpu_torch.parallel.sharding import batch_split
 
 __all__ = ['MPC']
 
@@ -348,8 +352,14 @@ class MPC(BaseController):
 
     # -- batched / multi-GPU solves ---------------------------------------
     def shard_over(self, mesh, axis_name: str = 'data'):
-        raise NotImplementedError('MPC.shard_over: multi-GPU batched solves come with '
-                                  'ROADMAP item 14 (torch.distributed)')
+        """Split the B problems of ``select_action_batch`` over ``axis_name``
+        of ``mesh`` (``parallel/sharding.py``): rank r solves rows ``[r B/W,
+        (r+1) B/W)`` (the ADMM stages capture their graphs at that shape) and
+        every rank returns the whole batch, gathered; ``batch_horizons`` holds
+        the rank's rows. A B that does not divide over the axis raises
+        ValueError. No collective runs inside the solve."""
+        mesh.check_device(self.device)
+        self._solve_mesh, self._solve_mesh_axis = mesh, axis_name
 
     def select_action_scenarios(self, obs, dynamics_params_batch, step: int = 0):
         """The same cold-started receding-horizon problem at ``obs`` under B
@@ -375,6 +385,7 @@ class MPC(BaseController):
             self._solve(x0, goal_t, *self._cold_start(x0), *self._tightening(B), dp,
                         dp_batched=True), obs_np[None], goal)
 
+    @batch_split(1)
     def select_action_batch(self, obs_batch, step: int = 0):
         """B independent cold-started receding-horizon solves as one batched
         solve on the env's device. Returns ``(actions (B, nu), feasible (B,)

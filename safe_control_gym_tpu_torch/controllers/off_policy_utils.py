@@ -10,6 +10,15 @@ writes its rows into the ring in place.
     replay_push(state, {'obs': obs, 'act': act})   # N rows each
     batch = replay_sample(state, torch.Generator('cuda').manual_seed(0), 64)
 
+Sharded over ``torch.distributed`` ranks (``SAC.shard_over``), each rank's
+ring holds its own envs' rows, so that a push stays local: with N envs over
+W ranks and ``max_size`` a multiple of N, row ``s N + e`` of the one-process
+ring is row ``s N/W + e - lo`` of the ring of the rank that holds env e.
+``replay_sample_sharded`` draws the indices of the one-process sample from
+the shared generator and sums each rank's rows of it into the whole batch on
+every rank (``replay_take`` and ``replay_gather`` convert between the two
+layouts).
+
 ``OffPolicyController`` is what SAC and DDPG (``controllers/sac/sac.py``,
 ``controllers/ddpg/ddpg.py``) share: the collect into the ring, the train
 phase, ``learn`` with the JAX package's interval and ``fused_iterations``
@@ -29,7 +38,8 @@ import torch
 from safe_control_gym_tpu_torch.controllers.base_controller import RLController
 from safe_control_gym_tpu_torch.utils.device import resolve_device
 
-__all__ = ['ReplayState', 'replay_init', 'replay_push', 'replay_sample', 'OffPolicyController']
+__all__ = ['ReplayState', 'replay_init', 'replay_push', 'replay_sample', 'replay_take',
+           'replay_gather', 'replay_sample_sharded', 'OffPolicyController']
 
 
 @dataclass
@@ -72,6 +82,51 @@ def replay_sample(state: ReplayState, gen: torch.Generator, batch_size: int
     return {k: v[idx] for k, v in state.data.items()}
 
 
+def replay_take(state: ReplayState, shards) -> ReplayState:
+    """A rank's ring (``parallel/sharding.EnvShards`` ``shards``) from the
+    one-process ring of the N envs."""
+    n, nl = shards.n, shards.hi - shards.lo
+    max_size = next(iter(state.data.values())).shape[0]
+    if max_size % n != 0:
+        raise ValueError(f'a sharded replay ring needs max_buffer_size ({max_size}) to be a '
+                         f'multiple of rollout_batch_size ({n})')
+    data = {k: v.reshape(max_size // n, n, -1)[:, shards.lo:shards.hi].reshape(-1, v.shape[1])
+            .clone() for k, v in state.data.items()}
+    return ReplayState(data=data, ptr=state.ptr * nl // n, count=state.count * nl // n)
+
+
+def replay_gather(state: ReplayState, shards) -> ReplayState:
+    """``replay_take``'s inverse: the one-process ring, on every rank."""
+    n, nl = shards.n, shards.hi - shards.lo
+    out = {}
+    for k, v in state.data.items():
+        slots = v.shape[0] // nl
+        full = v.new_zeros((slots, n, v.shape[1]))
+        full[:, shards.lo:shards.hi] = v.reshape(slots, nl, -1)
+        out[k] = shards.psum(full).reshape(slots * n, -1)
+    return ReplayState(data=out, ptr=state.ptr * n // nl, count=state.count * n // nl)
+
+
+def replay_sample_sharded(state: ReplayState, gen: torch.Generator, batch_size: int,
+                          shards) -> Dict[str, torch.Tensor]:
+    """``replay_sample`` of the one-process ring when each rank holds its
+    envs' rows (``replay_take``): the same indices, drawn from ``gen`` at the
+    global width, and every rank's rows of them summed (the others' are
+    zeros) into the whole batch, on every rank."""
+    n, nl, lo = shards.n, shards.hi - shards.lo, shards.lo
+    local_max = next(iter(state.data.values())).shape[0]
+    filled = torch.clamp(state.count * (n // nl), min=1, max=local_max * (n // nl))
+    u = torch.rand((batch_size,), generator=gen, device=state.ptr.device)
+    idx = torch.minimum((u * filled).long(), filled - 1)
+    env = idx % n
+    mine = (env >= lo) & (env < lo + nl)
+    local = torch.where(mine, (idx // n) * nl + env - lo, torch.zeros_like(idx))
+    names = list(state.data)
+    rows = torch.cat([state.data[k][local] for k in names], dim=1)
+    rows = shards.psum(torch.where(mine[:, None], rows, torch.zeros_like(rows)))
+    return dict(zip(names, torch.split(rows, [state.data[k].shape[1] for k in names], dim=1)))
+
+
 LOSS_NAMES = ('policy_loss', 'critic_loss')
 
 
@@ -103,11 +158,24 @@ class OffPolicyController(RLController):
         self._obs = None
 
     def reset(self):
-        """Start the N training envs afresh (when training) and clear the results."""
+        """Start the N training envs afresh (when training; sharded, this
+        rank's rows of them) and clear the results."""
         if self.training:
-            self._env_states, self._obs = self.func_env.reset_batch(self.gen, self.N)
+            self._env_states, self._obs = self._start_envs()
             self._reset_noise()
         self.setup_results_dict()
+
+    def _shard_envs(self, mesh, axis_name):
+        """This rank's rows of the envs and of the ring, and rank 0's agent
+        (``SAC.shard_over``)."""
+        from safe_control_gym_tpu_torch.parallel.sharding import EnvShards, replicate
+        shards = EnvShards(mesh, axis_name, self.N, self.device)
+        if self._env_states is None:
+            self.reset()
+        self._env_states, self._obs = shards.take((self._env_states, self._obs))
+        self.buffer = replay_take(self.buffer, shards)
+        replicate(mesh, self.agent.train_state())
+        self._shards = shards
 
     def _reset_noise(self):
         pass
@@ -135,7 +203,7 @@ class OffPolicyController(RLController):
         rews = []
         for t in range(self.steps_per_iter):
             act = self._explore(obs, random_phase, None if draws is None else draws[t])
-            est, out, next_obs = self.func_env.step_autoreset(est, act, self.gen)
+            est, out, next_obs = self._step_envs(est, act)
             self._after_step(out)
             # The terminal obs is next_obs; a time limit keeps the bootstrap.
             mask = 1.0 - (out.done & ~out.truncated).to(torch.float32)
@@ -144,7 +212,8 @@ class OffPolicyController(RLController):
             obs = next_obs
             rews.append(out.reward)
         self._env_states, self._obs = est, obs
-        return torch.stack(rews).mean()
+        rews = torch.stack(rews)
+        return self._shards.psum.mean(rews) if self._shards else rews.mean()
 
     def _after_step(self, out):
         pass
@@ -155,8 +224,13 @@ class OffPolicyController(RLController):
         mean ``[policy_loss, critic_loss]``, unread."""
         losses = []
         for i in range(int(self.train_interval)):
-            batch = (replay_sample(self.buffer, self.gen, int(self.train_batch_size))
-                     if batches is None else batches[i])
+            if batches is not None:
+                batch = batches[i]
+            elif self._shards:
+                batch = replay_sample_sharded(self.buffer, self.gen, int(self.train_batch_size),
+                                              self._shards)
+            else:
+                batch = replay_sample(self.buffer, self.gen, int(self.train_batch_size))
             losses.append(self.agent.update(batch, self.gen,
                                             None if noises is None else noises[i]))
         return torch.stack(losses).mean(dim=0)
@@ -207,7 +281,8 @@ class OffPolicyController(RLController):
             self.total_steps += steps_per_iter
             results['elapsed_time'] = time.time() - start
             results['step'] = self.total_steps
-            if self.log_interval and self.total_steps % self.log_interval < steps_per_iter:
+            if (self.log_interval and self.total_steps % self.log_interval < steps_per_iter
+                    and self.is_lead):
                 for k, v in results.items():
                     if k != 'step':
                         self.logger.add_scalar(f'{self.ALGO.lower()}/{k}', v, self.total_steps)
@@ -250,20 +325,25 @@ class OffPolicyController(RLController):
     def save(self, path, save_buffer=False):
         """Checkpoint the agent, ``total_steps`` and the generator's state (as
         ``key``) and, when training, the env states and obs; ``save_buffer``
-        adds the replay ring."""
+        adds the replay ring. Sharded, every rank calls it (the state is
+        gathered in the one-process layout) and rank 0 writes."""
         if not path:
             return
         from safe_control_gym_tpu_torch.utils.checkpoint import save_checkpoint
         from safe_control_gym_tpu_torch.utils.convert import env_state_to_numpy, replay_to_numpy
+        sh = self._shards
         state = {'agent': self.agent.state_dict(), 'total_steps': int(self.total_steps),
                  'key': self.gen.get_state().numpy()}
         if self.training and self._env_states is not None:
-            state['env_states'] = env_state_to_numpy(self._env_states)
-            state['obs'] = self._obs.cpu().numpy()
+            est, obs = self._whole_envs()
+            state['env_states'] = env_state_to_numpy(est)
+            state['obs'] = obs.cpu().numpy()
             state.update(self._extra_state())
             if save_buffer:
-                state['buffer'] = replay_to_numpy(self.buffer)
-        save_checkpoint(path, state)
+                state['buffer'] = replay_to_numpy(self.buffer if sh is None
+                                                  else replay_gather(self.buffer, sh))
+        if self.is_lead:
+            save_checkpoint(path, state)
 
     def load(self, path):
         """Restore a checkpoint of the port or of the JAX package (a JAX PRNG

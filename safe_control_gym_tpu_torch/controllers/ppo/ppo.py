@@ -11,6 +11,15 @@ tensor is read back inside an iteration: its scalars come back once, with
 ``fused_iterations`` K iterations run back to back before that read.
 ``run`` evaluates the mode of the policy on ``n_episodes`` envs at once.
 
+``shard_over(mesh)`` trains data parallel over ``torch.distributed`` ranks
+(``parallel/sharding.py``): each rank steps its rows of the N envs (K1-K3
+a step for its envs on the card), draws every random tensor at the global
+width from the one generator and keeps its rows, and sums over the ranks
+every statistic of the env batch (the two normalizers, the advantage
+normalization, the stats) and every minibatch's gradients. Every rank ends
+each iteration with the same parameters. With ``model_axis``, the MLPs are
+also split over the model axis. Only rank 0 writes logs and checkpoints.
+
 ``save`` writes every piece of training state as numpy
 (``utils/checkpoint.save_checkpoint``), the generator's state included, so
 that ``load`` resumes training exactly. ``load`` also takes a checkpoint the
@@ -25,6 +34,7 @@ counterpart, so the controller's generator is then re-seeded from its seed.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import deque
@@ -36,7 +46,8 @@ from safe_control_gym_tpu_torch.controllers.base_controller import RLController
 from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import (LOSS_NAMES, PPOAgent,
                                                                   actor_dist,
                                                                   compute_returns_and_advantages,
-                                                                  critic_value)
+                                                                  critic_value,
+                                                                  normalize_advantages)
 from safe_control_gym_tpu_torch.math.normalization import (rms_init, rms_normalize,
                                                            rms_update, ret_init,
                                                            ret_normalize, ret_update)
@@ -78,12 +89,35 @@ class PPO(RLController):
         self.last_results = {}     # the last training iteration's scalars
         self._env_states = None
         self._obs = None
+        self._batch_rows = None
 
     def reset(self):
-        """Start the N training envs afresh (when training) and clear the results."""
+        """Start the N training envs afresh (when training; sharded, this
+        rank's rows of them) and clear the results."""
         if self.training:
-            self._env_states, self._obs = self.func_env.reset_batch(self.gen, self.N)
+            self._env_states, self._obs = self._start_envs()
         self.setup_results_dict()
+
+    def shard_over(self, mesh, axis_name: str = 'env', model_axis: str = None):
+        """Train data parallel over ``mesh`` (``parallel/sharding.py``): this
+        rank keeps its rows of the env states, obs and running returns, and
+        rank 0's parameters, optimizer states and normalizers; the updates
+        sum over ``axis_name``. With ``model_axis`` (a ``make_dp_tp_mesh``),
+        the actor and critic and their Adam moments are also split over that
+        axis. Every rank calls it, and then ``learn``, alike."""
+        from safe_control_gym_tpu_torch.parallel.sharding import EnvShards
+        shards = EnvShards(mesh, axis_name, self.N, self.device)
+        if self._env_states is None:
+            self.reset()
+        self._env_states, self._obs = shards.take((self._env_states, self._obs))
+        if self.ret_norm_state is not None:
+            self.ret_norm_state = dataclasses.replace(
+                self.ret_norm_state, ret=shards.take(self.ret_norm_state.ret))
+        for norm in (self.obs_norm_state, self.ret_norm_state and self.ret_norm_state.rms):
+            if norm is not None:
+                mesh.broadcast_([norm.mean, norm.var, norm.count])
+        self.agent.shard(mesh, axis_name, model_axis)
+        self._shards, self._batch_rows = shards, shards.batch_rows(self.T)[0]
 
     def _normalize_obs(self, obs_norm, obs):
         return rms_normalize(obs_norm, obs, float(self.clip_obs)) if self.norm_obs else obs
@@ -108,20 +142,22 @@ class PPO(RLController):
         params, activation = self.agent.params, self.agent.activation
         est, obs = self._env_states, self._obs
         obs_norm, ret_state = self.obs_norm_state, self.ret_norm_state
+        sh = self._shards
+        psum = sh.psum if sh else None
         ys = {k: [] for k in ('obs', 'act', 'rew', 'mask', 'v', 'logp', 'term_v', 'raw_rew',
                               'done', 'mse', 'cviol')}
         for t in range(self.T):
             if self.norm_obs:
-                obs_norm = rms_update(obs_norm, obs)
+                obs_norm = rms_update(obs_norm, obs, psum)
             obs_n = self._normalize_obs(obs_norm, obs)
             dist = actor_dist(params, obs_n, activation)
-            act = dist.sample(self.gen) if noise is None else dist.loc + dist.scale * noise[t]
+            act = self._sample(dist, None if noise is None else noise[t])
             logp = dist.log_prob(act)
             v = critic_value(params, obs_n, activation)
-            est, out, next_obs = self.func_env.step_autoreset(est, act, self.gen)
+            est, out, next_obs = self._step_envs(est, act)
             rew = out.reward
             if self.norm_reward:
-                ret_state = ret_update(ret_state, rew, out.done, self.gamma)
+                ret_state = ret_update(ret_state, rew, out.done, self.gamma, psum)
                 rew_n = ret_normalize(ret_state, rew, float(self.clip_reward))
             else:
                 rew_n = rew
@@ -142,15 +178,17 @@ class PPO(RLController):
         rets, advs = compute_returns_and_advantages(
             ys['rew'], ys['v'], ys['mask'], ys['term_v'], last_val, self.gamma,
             bool(self.use_gae), float(self.gae_lambda))
-        advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-6)
-        m = self.T * self.N
+        advs = normalize_advantages(advs, psum)
+        m = ys['obs'].shape[0] * ys['obs'].shape[1]
         batch = {'obs': ys['obs'].reshape(m, -1), 'act': ys['act'].reshape(m, -1),
                  'logp': ys['logp'].reshape(m, -1), 'adv': advs.reshape(m, -1),
                  'ret': rets.reshape(m, -1), 'v': ys['v'].reshape(m, -1)}
-        stats = {'mean_reward': ys['raw_rew'].mean(),
-                 'dones': ys['done'].sum().to(torch.float32),
-                 'mean_mse': ys['mse'].mean(),
-                 'constraint_violations': ys['cviol'].sum().to(torch.float32)}
+        mean = psum.mean if sh else torch.mean
+        total = psum.sum if sh else torch.sum
+        stats = {'mean_reward': mean(ys['raw_rew']),
+                 'dones': total(ys['done'].to(torch.float32)),
+                 'mean_mse': mean(ys['mse']),
+                 'constraint_violations': total(ys['cviol'].to(torch.float32))}
         self._env_states, self._obs = est, obs
         if self.norm_obs:
             self.obs_norm_state = obs_norm
@@ -167,7 +205,8 @@ class PPO(RLController):
             m0 = self._mark()
             batch, stats = self.rollout()
             m1 = self._mark()
-            losses = self.agent.update_tensors(batch, self.gen)
+            losses = self.agent.update_tensors(
+                batch, self.gen, rows=self._batch_rows)
             marks.append((m0, m1, self._mark()))
             values.append(torch.cat([losses, torch.stack([stats[n] for n in STAT_NAMES])]))
         mean = torch.stack(values).mean(dim=0).cpu().numpy()
@@ -194,7 +233,8 @@ class PPO(RLController):
             self.total_steps += steps_per_iter * fused_k
             results['elapsed_time'] = time.time() - start
             results['step'] = self.total_steps
-            if self.log_interval and self.total_steps % self.log_interval < steps_per_iter:
+            if (self.log_interval and self.total_steps % self.log_interval < steps_per_iter
+                    and self.is_lead):
                 self.log_step(results)
             if self.save_interval and self.total_steps % self.save_interval < steps_per_iter:
                 self.save(os.path.join(self.output_dir, 'checkpoints',
@@ -222,8 +262,9 @@ class PPO(RLController):
         obs_norm = (self.obs_norm_state if self.obs_norm_state is not None
                     else rms_init((self.env.observation_space.shape[0],), device=self.device))
         env = self.eval_env if env is None else env
+        params = self.agent.full_params()
         return self._evaluate(env, n_episodes, lambda obs: actor_dist(
-            self.agent.params, self._normalize_obs(obs_norm, obs), self.agent.activation).mode())
+            params, self._normalize_obs(obs_norm, obs), self.agent.activation).mode())
 
     # ------------------------------------------------------------------
     def log_step(self, results):
@@ -238,21 +279,28 @@ class PPO(RLController):
     def save(self, path):
         """Checkpoint params, optimizers, normalizers, ``total_steps``, the
         generator's state (as ``key``) and, when training, the env states and
-        obs, for an exact resume."""
+        obs, for an exact resume. Sharded, every rank calls it (the whole
+        state is gathered, in the one-process layout) and rank 0 writes."""
         if not path:
             return
         from safe_control_gym_tpu_torch.utils.checkpoint import save_checkpoint
         from safe_control_gym_tpu_torch.utils.convert import (env_state_to_numpy,
                                                               normalizer_to_numpy)
+        sh = self._shards
+        ret_norm = self.ret_norm_state
+        if sh and ret_norm is not None:
+            ret_norm = dataclasses.replace(ret_norm, ret=sh.gather(ret_norm.ret))
         state = {'agent': self.agent.state_dict(),
                  'obs_norm_state': normalizer_to_numpy(self.obs_norm_state),
-                 'ret_norm_state': normalizer_to_numpy(self.ret_norm_state),
+                 'ret_norm_state': normalizer_to_numpy(ret_norm),
                  'total_steps': int(self.total_steps),
                  'key': self.gen.get_state().numpy()}
         if self.training and self._env_states is not None:
-            state['env_states'] = env_state_to_numpy(self._env_states)
-            state['obs'] = self._obs.cpu().numpy()
-        save_checkpoint(path, state)
+            est, obs = self._whole_envs()
+            state['env_states'] = env_state_to_numpy(est)
+            state['obs'] = obs.cpu().numpy()
+        if self.is_lead:
+            save_checkpoint(path, state)
 
     def load(self, path):
         """Restore a checkpoint of the port or of the JAX package. A JAX

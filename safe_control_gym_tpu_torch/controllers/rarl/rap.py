@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import compute_returns_and_advantages
-from safe_control_gym_tpu_torch.controllers.rarl.rarl import RARL, normalized
+from safe_control_gym_tpu_torch.controllers.rarl.rarl import RARL
 from safe_control_gym_tpu_torch.math.distributions import Normal
 from safe_control_gym_tpu_torch.math.networks import ACTIVATIONS
 from safe_control_gym_tpu_torch.math.optim import tree_leaves, tree_unflatten
@@ -57,8 +57,12 @@ class RAP(RARL):
             raise ValueError('rollout_batch_size must be divisible by num_adversaries')
         self._assign = None
 
+    def _all_agents(self):
+        return [self.agent, *self.adversaries]
+
     def sample_assignment(self):
-        """A balanced random assignment of the N envs to the members."""
+        """A balanced random assignment of the N envs to the members (of all
+        N, also when sharded)."""
         base = torch.arange(self.N, device=self.device) % self.num_adversaries
         return base[torch.randperm(self.N, generator=self.gen, device=self.device)]
 
@@ -70,11 +74,12 @@ class RAP(RARL):
 
     def _adversary_step(self, obs, draws):
         """Each env's action, log-prob and value from its assigned member."""
-        stack, assign = self._stacked_params, self._assign
+        stack = self._stacked_params
+        assign = self._shards.take(self._assign) if self._shards else self._assign
         activation = self.adversaries[0].activation
         dist = Normal(member_forward(stack['actor'], assign, obs, activation),
                       torch.exp(stack['logstd'][assign]))
-        a = dist.sample(self.gen) if draws is None else dist.loc + dist.scale * draws
+        a = self._sample(dist, draws)
         return a, dist.log_prob(a), member_forward(stack['critic'], assign, obs, activation)
 
     def _adversary_terminal_value(self, obs):
@@ -87,7 +92,7 @@ class RAP(RARL):
             -ys['rew'], ys['a_v'], ys['mask'], torch.zeros_like(ys['rew']),
             torch.zeros_like(a_last), self.gamma, bool(self.use_gae), float(self.gae_lambda))
         return {'obs': ys['obs'], 'act': ys['a_act'], 'logp': ys['a_logp'],
-                'adv': normalized(a_advs), 'ret': a_rets, 'v': ys['a_v']}
+                'adv': self._normalized(a_advs), 'ret': a_rets, 'v': ys['a_v']}
 
     @torch.no_grad()
     def rollout(self, use_adversary=True, p_noise=None, a_noise=None, assign=None):
@@ -102,13 +107,18 @@ class RAP(RARL):
         """The protagonist's update, or each member's on its envs' columns;
         returns the losses (the members' mean), unread."""
         if protagonist:
-            return self.agent.update_tensors(p_batch, self.gen)
+            return self.agent.update_tensors(p_batch, self.gen, rows=self._batch_rows)
         T = a_data['obs'].shape[0]
         losses = []
         for k, member in enumerate(self.adversaries):
             idx = torch.nonzero(self._assign == k)[:, 0]
+            rows = None
+            if self._shards:
+                # The member's envs of all N; this rank's columns of them.
+                rows, idx = self._shards.batch_rows(T, idx)
             losses.append(member.update_tensors({name: v[:, idx].reshape(T * idx.shape[0], -1)
-                                                 for name, v in a_data.items()}, self.gen))
+                                                 for name, v in a_data.items()}, self.gen,
+                                                rows=rows))
         return torch.stack(losses).mean(dim=0)
 
     def _agents_state(self):

@@ -16,8 +16,13 @@ Training alternates ``agent_iterations`` protagonist updates and
 host reads, with the JAX package's tail rule for ``total_steps``. ``run``
 plays episodes of the protagonist's mode on the stateful env, without the
 adversary. Checkpoints hold both agents, ``total_steps``, the generator's
-state and, when training, the env states and obs. ``shard_over`` (multi-GPU
-training) raises until ROADMAP item 14.
+state and, when training, the env states and obs.
+
+``shard_over(mesh)`` trains data parallel over ``torch.distributed`` ranks
+(``parallel/sharding.py``), as ``PPO.shard_over``: each rank steps its rows
+of the envs, draws at the global width from the one generator, and both
+agents' updates sum their gradients over the ranks; every agent stays
+identical on every rank. Only rank 0 writes logs and checkpoints.
 
     ctrl = make('rarl', partial(make, 'cartpole', device='cuda',
                                 adversary_disturbance='dynamics', **task),
@@ -34,13 +39,10 @@ from safe_control_gym_tpu_torch.controllers.base_controller import RLController
 from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import (LOSS_NAMES, PPOAgent,
                                                                   actor_dist,
                                                                   compute_returns_and_advantages,
-                                                                  critic_value)
+                                                                  critic_value,
+                                                                  normalize_advantages)
 
-__all__ = ['RARL', 'flat_batch', 'normalized']
-
-
-def normalized(advs):
-    return (advs - advs.mean()) / (advs.std(correction=0) + 1e-6)
+__all__ = ['RARL', 'flat_batch']
 
 
 def flat_batch(obs, act, logp, adv, ret, v):
@@ -76,6 +78,7 @@ class RARL(RLController):
         self.last_results = {}
         self._env_states = None
         self._obs = None
+        self._batch_rows = None
 
     def _ppo_agent(self, act_space, seed):
         return PPOAgent(self.env.observation_space, act_space, hidden_dim=self.hidden_dim,
@@ -87,14 +90,28 @@ class RARL(RLController):
                         max_grad_norm=self.max_grad_norm, seed=seed, device=self.device)
 
     def reset(self):
-        """Start the N training envs afresh (when training) and clear the results."""
+        """Start the N training envs afresh (when training; sharded, this
+        rank's rows of them) and clear the results."""
         if self.training:
-            self._env_states, self._obs = self.func_env.reset_batch(self.gen, self.N)
+            self._env_states, self._obs = self._start_envs()
         self.setup_results_dict()
 
+    def _all_agents(self):
+        return [self.agent, self.adversary]
+
     def shard_over(self, mesh, axis_name: str = 'env'):
-        raise NotImplementedError(f'{self.ALGO}.shard_over: multi-GPU training comes with '
-                                  'ROADMAP item 14 (torch.distributed)')
+        """Train data parallel over ``mesh`` (``parallel/sharding.py``): this
+        rank keeps its rows of the env states and obs, every agent takes rank
+        0's parameters and optimizer states, and both updates sum over
+        ``axis_name``. Every rank calls it, and then ``learn``, alike."""
+        from safe_control_gym_tpu_torch.parallel.sharding import EnvShards
+        shards = EnvShards(mesh, axis_name, self.N, self.device)
+        if self._env_states is None:
+            self.reset()
+        self._env_states, self._obs = shards.take((self._env_states, self._obs))
+        for agent in self._all_agents():
+            agent.shard(mesh, axis_name)
+        self._shards, self._batch_rows = shards, shards.batch_rows(self.T)[0]
 
     def select_action(self, obs, info=None):
         """The protagonist's mode action, as numpy float32."""
@@ -105,17 +122,17 @@ class RARL(RLController):
         """``est`` with the adversary's force written into ``adv_action``
         (padded to adv_dim) and ``adv_valid`` set to ``use_adversary``."""
         force = torch.clamp(a_act, -1.0, 1.0) * self.adv_scale + self.adv_offset
-        padded = torch.zeros((self.N, self.env.adv_action_dim), device=self.device)
+        n = force.shape[0]
+        padded = torch.zeros((n, self.env.adv_action_dim), device=self.device)
         padded[:, :force.shape[1]] = force
         return est.replace(adv_action=padded,
-                           adv_valid=torch.full((self.N,), bool(use_adversary),
-                                                device=self.device))
+                           adv_valid=torch.full((n,), bool(use_adversary), device=self.device))
 
     def _adversary_step(self, obs, draws):
         """The adversary's action, log-prob and value on ``obs``."""
         p = self.adversary.params
         dist = actor_dist(p, obs, self.adversary.activation)
-        a = dist.sample(self.gen) if draws is None else dist.loc + dist.scale * draws
+        a = self._sample(dist, draws)
         return a, dist.log_prob(a), critic_value(p, obs, self.adversary.activation)
 
     def _adversary_terminal_value(self, obs):
@@ -126,27 +143,29 @@ class RARL(RLController):
         a_rets, a_advs = compute_returns_and_advantages(
             -ys['rew'], ys['a_v'], ys['mask'], -ys['term_av'], a_last, self.gamma,
             bool(self.use_gae), float(self.gae_lambda))
-        return flat_batch(ys['obs'], ys['a_act'], ys['a_logp'], normalized(a_advs), a_rets,
-                          ys['a_v'])
+        return flat_batch(ys['obs'], ys['a_act'], ys['a_logp'], self._normalized(a_advs),
+                          a_rets, ys['a_v'])
+
+    def _normalized(self, advs):
+        return normalize_advantages(advs, self._shards.psum if self._shards else None)
 
     @torch.no_grad()
     def rollout(self, use_adversary=True, p_noise=None, a_noise=None):
         """T steps of the N envs with both agents; returns ``(p_batch,
         a_batch, mean_reward)`` (the reward unread). ``p_noise`` (T, N,
         act_dim) and ``a_noise`` (T, N, adv_dim): standard normals in place of
-        the two agents' draws."""
+        the two agents' draws (of all N envs also when sharded)."""
         pp, act_fn = self.agent.params, self.agent.activation
         est, obs = self._env_states, self._obs
         ys = {k: [] for k in ('obs', 'p_act', 'a_act', 'rew', 'mask', 'p_v', 'a_v', 'p_logp',
                               'a_logp', 'term_pv', 'term_av')}
         for t in range(self.T):
             p_dist = actor_dist(pp, obs, act_fn)
-            p_act = (p_dist.sample(self.gen) if p_noise is None
-                     else p_dist.loc + p_dist.scale * p_noise[t])
+            p_act = self._sample(p_dist, None if p_noise is None else p_noise[t])
             a_act, a_logp, a_v = self._adversary_step(obs, None if a_noise is None
                                                       else a_noise[t])
             est = self._adversary_force(a_act, est, use_adversary)
-            est, out, next_obs = self.func_env.step_autoreset(est, p_act, self.gen)
+            est, out, next_obs = self._step_envs(est, p_act)
             trunc = out.truncated[:, None]
             term_pv = critic_value(pp, out.obs, act_fn)
             term_av = self._adversary_terminal_value(out.obs)
@@ -164,11 +183,12 @@ class RARL(RLController):
         p_rets, p_advs = compute_returns_and_advantages(
             ys['rew'], ys['p_v'], ys['mask'], ys['term_pv'], p_last, self.gamma,
             bool(self.use_gae), float(self.gae_lambda))
-        p_batch = flat_batch(ys['obs'], ys['p_act'], ys['p_logp'], normalized(p_advs), p_rets,
-                             ys['p_v'])
+        p_batch = flat_batch(ys['obs'], ys['p_act'], ys['p_logp'], self._normalized(p_advs),
+                             p_rets, ys['p_v'])
         a_batch = self._adversary_batch(ys, self._adversary_terminal_value(obs))
         self._env_states, self._obs = est, obs
-        return p_batch, a_batch, ys['rew'].mean()
+        mean_rew = self._shards.psum.mean(ys['rew']) if self._shards else ys['rew'].mean()
+        return p_batch, a_batch, mean_rew
 
     def _phase_iteration(self, protagonist: bool, train: bool, use_adversary: bool):
         """One rollout and, with ``train``, one update of the protagonist
@@ -183,8 +203,8 @@ class RARL(RLController):
 
     def _update(self, protagonist, p_batch, a_batch):
         if protagonist:
-            return self.agent.update_tensors(p_batch, self.gen)
-        return self.adversary.update_tensors(a_batch, self.gen)
+            return self.agent.update_tensors(p_batch, self.gen, rows=self._batch_rows)
+        return self.adversary.update_tensors(a_batch, self.gen, rows=self._batch_rows)
 
     def _cycle(self, max_env_steps=None):
         """``agent_iterations`` protagonist iterations, then
@@ -242,7 +262,7 @@ class RARL(RLController):
                 self.train_seconds['rollout'] += self._seconds(m0, m1)
                 self.train_seconds['update'] += self._seconds(m1, m2)
             self.last_results = results
-            if self.log_interval:
+            if self.log_interval and self.is_lead:
                 self.logger.add_scalar(f'{self.ALGO.lower()}/mean_reward',
                                        results['mean_reward'], self.total_steps)
                 self.logger.dump_scalars()
@@ -264,7 +284,8 @@ class RARL(RLController):
 
     def save(self, path):
         """Checkpoint both agents, ``total_steps``, the generator's state and,
-        when training, the env states and obs."""
+        when training, the env states and obs (sharded: gathered by every
+        rank, written by rank 0)."""
         if not path:
             return
         from safe_control_gym_tpu_torch.utils.checkpoint import save_checkpoint
@@ -272,9 +293,11 @@ class RARL(RLController):
         state = {**self._agents_state(), 'total_steps': int(self.total_steps),
                  'key': self.gen.get_state().numpy()}
         if self.training and self._env_states is not None:
-            state['env_states'] = env_state_to_numpy(self._env_states)
-            state['obs'] = self._obs.cpu().numpy()
-        save_checkpoint(path, state)
+            est, obs = self._whole_envs()
+            state['env_states'] = env_state_to_numpy(est)
+            state['obs'] = obs.cpu().numpy()
+        if self.is_lead:
+            save_checkpoint(path, state)
 
     def load(self, path):
         """Restore a checkpoint of the port or of the JAX package (a JAX PRNG

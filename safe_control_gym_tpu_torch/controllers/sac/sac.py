@@ -16,7 +16,14 @@ the ring. No tensor is read back inside an iteration; with
 before one read, and ``total_steps`` advances by K iterations.
 
 ``run`` evaluates the deterministic policy on ``n_episodes`` envs at once.
-``shard_over`` (multi-GPU training) raises until ROADMAP item 14.
+``shard_over(mesh)`` trains data parallel over ``torch.distributed`` ranks
+(``parallel/sharding.py``): each rank steps its rows of the N envs, draws
+every random tensor at the global width from the one generator and pushes
+its envs' rows into its own ring; each update's batch is drawn as the
+one-process run draws it, gathered on every rank, and the update runs
+replicated, so that every rank holds the same agent. With ``model_axis``
+the actor, twin Q and targets and their Adam moments are also split over
+the model axis. Only rank 0 writes logs and checkpoints.
 ``save(path, save_buffer=True)`` (the end of ``learn``) also writes the ring,
 the env states and the generator's state, so that ``load`` resumes training
 exactly; ``load`` also takes a checkpoint of the JAX package, whose PRNG key
@@ -56,23 +63,35 @@ class SAC(OffPolicyController):
         self._setup_training()
 
     def shard_over(self, mesh, axis_name: str = 'env', model_axis: str = None):
-        raise NotImplementedError('SAC.shard_over: multi-GPU training comes with '
-                                  'ROADMAP item 14 (torch.distributed)')
+        """Train data parallel over ``mesh`` (``parallel/sharding.py``): this
+        rank keeps its rows of the envs and of the replay ring and rank 0's
+        agent; with ``model_axis`` (a ``make_dp_tp_mesh``) the networks and
+        their Adam moments are split over that axis. ``max_buffer_size``
+        must be a multiple of ``rollout_batch_size``. Every rank calls it,
+        and then ``learn``, alike."""
+        self._shard_envs(mesh, axis_name)
+        if model_axis is not None and mesh.shape[model_axis] > 1:
+            self.agent.split(mesh, model_axis)
 
     def _explore(self, obs, random_phase, draws):
         """Uniform in the action box in the random phase (``draws``: its
         U[0, 1) numbers), else a draw of the squashed Gaussian policy
         (``draws``: its standard normals)."""
+        sh = self._shards
         if random_phase:
             if draws is None:
                 draws = torch.rand((self.N,) + tuple(self.act_low.shape), generator=self.gen,
                                    device=self.device)
-            return self._random_action(draws)
+            return self._random_action(sh.take(draws) if sh else draws)
+        if sh:
+            # The one-process run's normals of all N envs; this rank's rows.
+            draws = sh.take(torch.randn((self.N,) + tuple(self.act_low.shape), generator=self.gen,
+                                        device=self.device) if draws is None else draws)
         return sac_actor_forward(self.agent.params['actor'], obs, self.gen, self.act_low,
                                  self.act_high, self.agent.activation, with_logprob=False,
                                  noise=draws)[0]
 
     def _deterministic_action(self, obs):
-        return sac_actor_forward(self.agent.params['actor'], obs, self.gen, self.act_low,
+        return sac_actor_forward(self.agent.full_params()['actor'], obs, self.gen, self.act_low,
                                  self.act_high, self.agent.activation, deterministic=True,
                                  with_logprob=False)[0]

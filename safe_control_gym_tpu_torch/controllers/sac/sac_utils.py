@@ -116,6 +116,28 @@ class SACAgent:
         self.actor_opt_state = optim.adam_init(tree_leaves(self.params['actor']))
         self.critic_opt_state = optim.adam_init(tree_leaves(self._q(self.params)))
         self.alpha_opt_state = optim.adam_init([self.log_alpha])
+        self.mesh = self.model_axis = None
+
+    def split(self, mesh, model_axis='model'):
+        """Split the actor, twin Q and targets and their Adam moments over
+        ``model_axis`` of ``mesh`` (``parallel/sharding.mlp_tp_shardings``);
+        the update then runs with the model axis's collectives."""
+        from safe_control_gym_tpu_torch.parallel import sharding
+        specs = sharding.actor_critic_tp_shardings(mesh, self.params, model_axis)
+        self.mesh, self.model_axis = mesh, model_axis
+        self.params = sharding.shard_params(mesh, self.params, specs, model_axis)
+        self.target = sharding.shard_params(mesh, self.target, specs, model_axis)
+        self.actor_opt_state = sharding.shard_adam(mesh, model_axis, self.actor_opt_state,
+                                                   self.params['actor'])
+        self.critic_opt_state = sharding.shard_adam(mesh, model_axis, self.critic_opt_state,
+                                                    self._q(self.params))
+
+    def full_params(self):
+        """The whole parameters (gathered over the model axis when split)."""
+        if self.model_axis is None:
+            return self.params
+        from safe_control_gym_tpu_torch.parallel.sharding import gather_params
+        return gather_params(self.params)
 
     @staticmethod
     def _q(params):
@@ -196,10 +218,16 @@ class SACAgent:
         """The JAX layout as numpy: params, target, log_alpha and the three
         Adam states (``{'count', 'mu', 'nu'}`` over the leaves)."""
         from safe_control_gym_tpu_torch.utils.convert import adam_state_to_numpy, tree_to_numpy
-        return {'params': tree_to_numpy(self.params), 'target': tree_to_numpy(self.target),
+        target, a_opt, c_opt = self.target, self.actor_opt_state, self.critic_opt_state
+        if self.model_axis is not None:
+            from safe_control_gym_tpu_torch.parallel.sharding import gather_adam, gather_params
+            target = gather_params(target)
+            a_opt = gather_adam(self.mesh, self.model_axis, a_opt, self.params['actor'])
+            c_opt = gather_adam(self.mesh, self.model_axis, c_opt, self._q(self.params))
+        return {'params': tree_to_numpy(self.full_params()), 'target': tree_to_numpy(target),
                 'log_alpha': self.log_alpha.detach().cpu().numpy(),
-                'actor_opt_state': adam_state_to_numpy(self.actor_opt_state),
-                'critic_opt_state': adam_state_to_numpy(self.critic_opt_state),
+                'actor_opt_state': adam_state_to_numpy(a_opt),
+                'critic_opt_state': adam_state_to_numpy(c_opt),
                 'alpha_opt_state': adam_state_to_numpy(self.alpha_opt_state)}
 
     def load_state_dict(self, sd):

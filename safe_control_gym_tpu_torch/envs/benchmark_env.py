@@ -159,17 +159,20 @@ class FuncEnv:
     * ``reset_batch(gen, n) -> (EnvState, obs)``
     * ``step(est, actions, gen=None, drawn=None) -> (EnvState, StepOut)``
     * ``step_autoreset(est, actions, gen, drawn=None, fresh=None) -> (EnvState, StepOut, obs)``
+    * ``draw_noise(gen, n) -> drawn``: one step's draws of every stochastic
+      disturbance channel, in the order ``step_autoreset`` makes them
 
     ``drawn`` maps a disturbance channel ('observation', 'action',
     'dynamics') to that step's pre-drawn noise; a stochastic channel missing
     from it is drawn from ``gen``.
     """
 
-    def __init__(self, reset_batch, step, step_autoreset, obs_dim, act_dim,
+    def __init__(self, reset_batch, step, step_autoreset, draw_noise, obs_dim, act_dim,
                  state_dim, n_constraints, max_steps):
         self.reset_batch = reset_batch
         self.step = step
         self.step_autoreset = step_autoreset
+        self.draw_noise = draw_noise
         self.obs_dim = obs_dim
         self.act_dim = act_dim
         self.state_dim = state_dim
@@ -597,6 +600,9 @@ class BenchmarkEnv:
                 noisy_action=noisy, clipped_action=clipped, physical_action=phys)
             return est_new.replace(ctrl_step=new_step), out
 
+        def draw_noise(gen, n):
+            return {ch: dists[ch].draw(gen, n) for ch in stochastic}
+
         def step_autoreset(est: EnvState, actions, gen, drawn=None, fresh=None):
             """``step``, then every done env starts afresh: its state, counter,
             disturbance state, adversary buffer and randomized parameters come
@@ -623,7 +629,7 @@ class BenchmarkEnv:
             obs = torch.where(done_col, fresh_obs, out.obs)
             return est, out, obs
 
-        self.func = FuncEnv(reset_batch, step, step_autoreset,
+        self.func = FuncEnv(reset_batch, step, step_autoreset, draw_noise,
                             obs_dim=int(np.prod(self.observation_space.shape)),
                             act_dim=act_dim, state_dim=state_dim,
                             n_constraints=n_con, max_steps=CTRL_STEPS)

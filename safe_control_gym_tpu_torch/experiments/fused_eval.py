@@ -12,6 +12,13 @@ Port of ``safe_control_gym_tpu/experiments/fused_eval.py``. Two paths:
   JAX package left the actor forward to XLA). It serves every config the
   kernel's gates refuse.
 
+With ``mesh`` (``parallel/sharding.py``), the fleet is split over the ranks
+of ``axis_name``: each rank runs the per-step path on its rows of the envs
+(K1-K3 a step on the card), drawn at the global width from the one seed, so
+that its envs are rows of the one-process fleet; the per-env statistics are
+gathered and every rank returns the whole fleet's (``path`` is
+``'per-step-scan-sharded'``).
+
 With ``use_kernel=None`` the kernel path is taken when the env lives on a
 CUDA device and the gates raise no ``ValueError``; errors from the kernel
 run itself propagate. Both paths return fleet statistics with the JAX
@@ -40,26 +47,29 @@ def policy_eval_spec(ctrl, env, stochastic=False):
     ``mlp_init`` parameter list), ``activation``, ``squash`` (the SAC/DDPG
     tanh), ``std`` ((nu,) exploration std, stochastic PPO only),
     ``obs_mean``/``obs_var`` (frozen normalizer stats or None), ``clip_obs``,
-    and ``action_fn(obs, gen) -> action``, the controller's own action
-    semantics (the per-step path, and what the kernel path is held to).
+    and ``action_fn(obs, gen, rows=None) -> action``, the controller's own
+    action semantics (the per-step path, and what the kernel path is held
+    to); ``rows`` draws a sharded batch's noise at the global width
+    (``Normal.sample``). A tensor-parallel actor is gathered whole.
 
     Raises ValueError for policies neither path reproduces: stochastic SAC or
     DDPG, and squashed policies on a physical (not normalized) action space."""
     from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import actor_dist
+    from safe_control_gym_tpu_torch.parallel.sharding import gather_params
     name = type(ctrl).__name__
-    params = ctrl.agent.params
+    params = gather_params(ctrl.agent.params)
     activation = ctrl.agent.activation
     if name == 'PPO':
         norm = bool(ctrl.norm_obs) and ctrl.obs_norm_state is not None
         obs_norm = ctrl.obs_norm_state if norm else None
         clip_obs = float(ctrl.clip_obs) if norm else 1e30
 
-        def action_fn(obs, gen):
+        def action_fn(obs, gen, rows=None):
             if norm:
                 obs = torch.clamp((obs - obs_norm.mean) / torch.sqrt(obs_norm.var + 1e-8),
                                   -clip_obs, clip_obs)
             dist = actor_dist(params, obs, activation)
-            return dist.sample(gen) if stochastic else dist.mode()
+            return dist.sample(gen, rows=rows) if stochastic else dist.mode()
 
         return dict(actor=params['actor'], activation=activation, squash=False,
                     std=torch.exp(params['logstd']),
@@ -84,14 +94,14 @@ def policy_eval_spec(ctrl, env, stochastic=False):
             from safe_control_gym_tpu_torch.controllers.sac.sac_utils import \
                 sac_actor_forward
 
-            def action_fn(obs, gen):
+            def action_fn(obs, gen, rows=None):
                 return sac_actor_forward(params['actor'], obs, gen, lo, hi, activation,
                                          deterministic=True, with_logprob=False)[0]
         else:
             from safe_control_gym_tpu_torch.controllers.ddpg.ddpg_utils import \
                 ddpg_actor_forward
 
-            def action_fn(obs, gen):
+            def action_fn(obs, gen, rows=None):
                 return ddpg_actor_forward(params['actor'], obs, lo, hi, activation)
 
         return dict(actor=params['actor'], activation=activation, squash=True, std=None,
@@ -190,23 +200,31 @@ def _kernel_eval(spec, env, batch, n_steps, seed, stochastic, n_reps, gates=None
     return totals, per_env, best
 
 
-def _per_step_eval(spec, env, batch, n_steps, seed, n_reps):
+def _per_step_eval(spec, env, batch, n_steps, seed, n_reps, shards=None):
     """The per-step path: ``FuncEnv.step_autoreset`` in a Python loop, the
-    action from the controller's own action function."""
+    action from the controller's own action function. With ``shards``
+    (``parallel/sharding.EnvShards``), this rank's rows of the fleet, the
+    per-env statistics gathered whole."""
     func = env.func
     dev = env.device
     action_fn = spec['action_fn']
     counts = env.constraints is not None and bool(env.constraints.constraints)
+    rows = shards.draw_rows if shards else None
 
     def run(s):
         gen = torch.Generator(device=dev).manual_seed(s)
         states, obs = func.reset_batch(gen, batch)
-        z = lambda: torch.zeros((batch,), dtype=torch.float32, device=dev)
+        if shards:
+            states, obs = shards.take((states, obs))
+        z = lambda: torch.zeros((obs.shape[0],), dtype=torch.float32, device=dev)
         rew, dn, vi, mse = z(), z(), z(), z()
         with torch.no_grad():
             for _ in range(n_steps):
-                act = action_fn(obs, gen)
-                states, out, obs = func.step_autoreset(states, act, gen)
+                act = action_fn(obs, gen, rows)
+                if shards:
+                    states, out, obs = shards.step(func, states, act, gen)
+                else:
+                    states, out, obs = func.step_autoreset(states, act, gen)
                 rew = rew + out.reward
                 dn = dn + out.done.to(torch.float32)
                 if counts:
@@ -214,7 +232,10 @@ def _per_step_eval(spec, env, batch, n_steps, seed, n_reps):
                 mse = mse + out.mse
         return rew, dn, vi, mse
 
-    rew, dn, vi, mse = (a.cpu().numpy() for a in run(seed))   # warm-up and values
+    out = run(seed)                                         # warm-up and values
+    if shards:
+        out = shards.gather(out)
+    rew, dn, vi, mse = (a.cpu().numpy() for a in out)
     per_env = dict(reward_sum=rew, done_count=dn)
     if counts:
         per_env['violation_count'] = vi
@@ -247,21 +268,28 @@ def evaluate_policy_fused(ctrl, env=None, batch=1024, n_steps=4096, seed=0,
         n_reps: timed repetitions after the warm-up run (best of).
         return_per_env: add ``per_env``, the (batch,) numpy ``reward_sum``,
             ``done_count`` (and ``violation_count``) of the warm-up run.
-        mesh, axis_name: sharding over devices, not in the port yet.
+        mesh, axis_name: a ``parallel/sharding.Mesh`` to split the fleet over
+            the ranks of ``axis_name`` (the per-step path; ``batch`` must
+            divide over the axis). Every rank calls it alike and gets the
+            whole fleet's statistics, equal to the one-process run's.
 
     Returns a dict: ``path``, ``total_steps``, ``episodes``, ``ep_return_mean``,
     ``ep_length_mean``, ``steps_per_sec``, ``total_violations`` (constrained
     envs), ``rmse`` (per-step path only), ``kernel_refusal`` (a CUDA env the
     gates refused) and ``per_env`` if asked.
     """
-    if mesh is not None:
-        raise NotImplementedError('fused eval: sharding the env batch over devices '
-                                  'comes with the multi-GPU slice (ROADMAP Queue 1 '
-                                  'item 14)')
     env = env if env is not None else ctrl.env
     spec = policy_eval_spec(ctrl, env, stochastic=stochastic)
     path = refusal = None
-    if use_kernel is None:
+    if mesh is not None:
+        if use_kernel:
+            raise ValueError('fused eval: mesh sharding runs the per-step path (the rollout '
+                             'kernel is per-device)')
+        from safe_control_gym_tpu_torch.parallel.sharding import EnvShards
+        totals, per_env, best = _per_step_eval(spec, env, batch, n_steps, seed, n_reps,
+                                               EnvShards(mesh, axis_name, batch, env.device))
+        path = 'per-step-scan-sharded'
+    elif use_kernel is None:
         if env.device.type == 'cuda':
             try:
                 gates = _kernel_gates(spec, env, stochastic)

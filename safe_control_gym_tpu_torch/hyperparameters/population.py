@@ -33,6 +33,12 @@ result does not depend on the others. ``evaluate(..., draws=...)`` takes
 these draws from the caller instead (``lane_draws`` gives them in the form
 ``evaluate`` takes), so that another implementation's draws can be fed in.
 
+With ``mesh`` (``parallel/sharding.py``), the P lanes split over the ranks of
+``axis_name``: rank r trains lanes ``[r P/W, (r+1) P/W)`` (one K1 launch a
+step for its (P/W)×N envs on the card) and every rank returns the (P,
+n_eval) returns, gathered. Lanes are independent, so a lane's result is the
+one-process run's.
+
     ev = make_population_ppo_evaluator(partial(make, 'cartpole'), rollout_batch_size=16,
                                        rollout_steps=100, iterations=2, device='cuda')
     returns = ev({'actor_lr': np.array([3e-4, 1e-3])}, seeds=[0, 1])   # (2, n_eval)
@@ -247,8 +253,11 @@ class PopulationPPO:
 
     def __init__(self, env_func, rollout_batch_size=32, rollout_steps=64, iterations=20,
                  opt_epochs=10, mini_batch_size=64, hidden_dim=64, activation='tanh',
-                 use_gae=True, n_eval=5, device='cuda'):
+                 use_gae=True, n_eval=5, device='cuda', mesh=None, axis_name='pop'):
         self.device = resolve_device(device)
+        if mesh is not None:
+            mesh.check_device(self.device)
+        self.mesh, self.axis_name = mesh, axis_name
         self.env = env_func(device=self.device)
         self.func = self.env.func
         self.obs_dim = self.env.observation_space.shape[0]
@@ -444,12 +453,25 @@ class PopulationPPO:
         the p-th value of each array of ``hp_arrays`` ((P,) arrays keyed by
         ``VECTOR_HPS``; PPO's defaults where a name is missing). ``draws``
         (``lane_draws``'s form) replaces the lanes' own draws. Returns the
-        (P, n_eval) episode returns as numpy, the run's one host read."""
+        (P, n_eval) episode returns as numpy, the run's one host read. With a
+        mesh, this rank trains its lanes (P must divide over the axis) and the
+        returns of every lane are gathered."""
         p_lanes = len(seeds)
         hp = self.hp_tensors(hp_arrays, p_lanes)
+        if self.mesh is not None:
+            lo, hi = self.mesh.rows(p_lanes, self.axis_name)
+            hp = {k: v[lo:hi] for k, v in hp.items()}
+            seeds = list(seeds)[lo:hi]
+            if draws is not None:
+                draws = self.select_lanes(draws, list(range(lo, hi)))
+            p_lanes = hi - lo
         src = _FedDraws(draws) if draws is not None else _LaneDraws(self, seeds)
         params = self.train(hp, src)
-        return self.evaluate_params(params, src, p_lanes).cpu().numpy()
+        returns = self.evaluate_params(params, src, p_lanes)
+        if self.mesh is not None:
+            returns = self.mesh.gather_rows(returns, len(seeds) * self.mesh.shape[self.axis_name],
+                                            self.axis_name)
+        return returns.cpu().numpy()
 
     __call__ = evaluate
 
@@ -457,11 +479,12 @@ class PopulationPPO:
 def make_population_ppo_evaluator(env_func, rollout_batch_size=32, rollout_steps=64,
                                   iterations=20, opt_epochs=10, mini_batch_size=64,
                                   hidden_dim=64, activation='tanh', use_gae=True, n_eval=5,
-                                  device='cuda') -> PopulationPPO:
+                                  mesh=None, axis_name='pop', device='cuda') -> PopulationPPO:
     """The population evaluator (the JAX package's factory's signature, with
-    ``device``; it runs on the card unless given ``device='cpu'``)."""
+    ``device``; it runs on the card unless given ``device='cpu'``). ``mesh``
+    splits the lanes over the ranks of ``axis_name``."""
     return PopulationPPO(env_func, rollout_batch_size=rollout_batch_size,
                          rollout_steps=rollout_steps, iterations=iterations,
                          opt_epochs=opt_epochs, mini_batch_size=mini_batch_size,
                          hidden_dim=hidden_dim, activation=activation, use_gae=use_gae,
-                         n_eval=n_eval, device=device)
+                         n_eval=n_eval, device=device, mesh=mesh, axis_name=axis_name)

@@ -26,9 +26,15 @@ class Normal:
         self.loc = loc
         self.scale = scale
 
-    def sample(self, gen: torch.Generator, shape=()):
+    def sample(self, gen: torch.Generator, shape=(), rows=None):
+        """A draw; ``rows = (lo, hi, n)`` draws for a batch of ``n`` and keeps
+        rows ``lo:hi`` (a rank's rows of a sharded batch, ``loc``'s rows)."""
         shape = tuple(shape) + tuple(self.loc.shape)
+        if rows is not None:
+            shape = (rows[2],) + shape[1:]
         noise = torch.randn(shape, generator=gen, device=gen.device).to(self.loc.device)
+        if rows is not None:
+            noise = noise[rows[0]:rows[1]]
         return self.loc + self.scale * noise
 
     def log_prob(self, value):
@@ -51,9 +57,15 @@ class Categorical:
         self.logits = logits
         self.log_p = torch.log_softmax(logits, dim=-1)
 
-    def sample(self, gen: torch.Generator):
-        """Indices (int64, the logits' leading shape) by the Gumbel-max trick."""
-        u = torch.rand(self.logits.shape, generator=gen, device=gen.device)
+    def sample(self, gen: torch.Generator, rows=None):
+        """Indices (int64, the logits' leading shape) by the Gumbel-max trick;
+        ``rows`` as in ``Normal.sample``."""
+        shape = tuple(self.logits.shape)
+        if rows is not None:
+            shape = (rows[2],) + shape[1:]
+        u = torch.rand(shape, generator=gen, device=gen.device)
+        if rows is not None:
+            u = u[rows[0]:rows[1]]
         gumbel = -torch.log(-torch.log(u.to(self.logits.device)))
         return torch.argmax(self.logits + gumbel, dim=-1)
 

@@ -66,7 +66,11 @@ def mlp_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 
 def mlp_apply(params, x, activation: str = 'tanh', out_activation: str = 'identity'):
-    """Forward pass over any leading batch shape."""
+    """Forward pass over any leading batch shape. A tensor-parallel layer
+    list (``parallel/sharding.TPMLP``) runs its own pass, with the model
+    axis's collectives."""
+    if hasattr(params, 'apply'):
+        return params.apply(x, activation, out_activation)
     act, out_act = ACTIVATIONS[activation], ACTIVATIONS[out_activation]
     h = x
     for layer in params[:-1]:

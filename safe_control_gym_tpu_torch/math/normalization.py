@@ -39,13 +39,21 @@ def rms_init(shape, epsilon=1e-4, device='cpu') -> NormalizerState:
                            count=torch.tensor(epsilon, dtype=torch.float32, device=device))
 
 
-def rms_update(state: NormalizerState, batch) -> NormalizerState:
+def rms_update(state: NormalizerState, batch, psum=None) -> NormalizerState:
     """Fold ``batch`` (any leading axes over the state's shape) into the
-    running statistics."""
+    running statistics. ``psum``, for a batch sharded over ranks, sums a
+    tensor over them (``parallel/sharding.Mesh.psum`` of the batch's axis)
+    and has ``n``, the number of shards: the statistics are then the whole
+    batch's, in two passes (mean, then the squared deviations)."""
     flat = batch.reshape((-1,) + tuple(state.mean.shape))
-    batch_mean = flat.mean(dim=0)
-    batch_var = flat.var(dim=0, correction=0)
-    batch_count = flat.shape[0]
+    if psum is None:
+        batch_mean = flat.mean(dim=0)
+        batch_var = flat.var(dim=0, correction=0)
+        batch_count = flat.shape[0]
+    else:
+        batch_count = flat.shape[0] * psum.n
+        batch_mean = psum(flat.sum(dim=0)) / batch_count
+        batch_var = psum(((flat - batch_mean) ** 2).sum(dim=0)) / batch_count
     delta = batch_mean - state.mean
     tot = state.count + batch_count
     new_mean = state.mean + delta * batch_count / tot
@@ -71,11 +79,12 @@ def ret_init(n_envs: int, epsilon=1e-4, device='cpu') -> RetState:
     return RetState(rms=rms_init((), epsilon, device), ret=torch.zeros(n_envs, device=device))
 
 
-def ret_update(state: RetState, rewards, dones, gamma: float) -> RetState:
+def ret_update(state: RetState, rewards, dones, gamma: float, psum=None) -> RetState:
     """Discount and add this step's rewards, fold the returns into the
-    statistics, and restart the return of every done env."""
+    statistics, and restart the return of every done env (``psum`` as in
+    ``rms_update``)."""
     ret = state.ret * gamma + rewards
-    rms = rms_update(state.rms, ret)
+    rms = rms_update(state.rms, ret, psum)
     return RetState(rms=rms, ret=torch.where(dones, torch.zeros_like(ret), ret))
 
 

@@ -51,14 +51,17 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def tree_unflatten(like, leaves):
-    """The pytree shaped as ``like`` with ``leaves`` (``tree_leaves``'s order)."""
+    """The pytree shaped as ``like`` with ``leaves`` (``tree_leaves``'s order).
+    A list with a ``rebuild`` method (``parallel/sharding.TPMLP``) keeps its
+    type."""
     it = iter(leaves)
 
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):
-            return [build(v) for v in t]
+            out = [build(v) for v in t]
+            return t.rebuild(out) if hasattr(t, 'rebuild') else out
         return next(it)
     return build(like)
 
@@ -78,8 +81,11 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor = None) -> List[torch.Tensor]:
+    """``grads`` clipped to ``max_norm``; ``norm``, where given, is their
+    global norm (split tensors' norm, summed over their shards)."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -117,9 +123,10 @@ def adam_step(params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict
 
 
 def clip_adam_step(params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
-                   lr: float, max_norm: float):
-    """One step of the chain: ``(new_params, new_state)``."""
-    updates, state = adam_update(clip_by_global_norm(grads, max_norm), state, lr)
+                   lr: float, max_norm: float, norm: torch.Tensor = None):
+    """One step of the chain: ``(new_params, new_state)``; ``norm`` as in
+    ``clip_by_global_norm``."""
+    updates, state = adam_update(clip_by_global_norm(grads, max_norm, norm), state, lr)
     return list(torch._foreach_add(params, updates)), state
 
 

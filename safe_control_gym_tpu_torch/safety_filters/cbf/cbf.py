@@ -17,7 +17,9 @@ problems: the second candidate carries an inert row, -big <= 0 <= big, so
 that both have the same rows), on the env's device, each ADMM stage a
 captured CUDA graph on the card.
 
-``shard_over`` (multi-GPU batches) raises until ROADMAP item 14.
+``shard_over(mesh)`` splits the B problems of ``certify_action_batch`` over
+``torch.distributed`` ranks (``parallel/sharding.batch_split``); CBF_NN
+inherits it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.func import grad, jacfwd, vmap
 from safe_control_gym_tpu_torch.controllers.mpc.mpc import BIG
 from safe_control_gym_tpu_torch.math.linalg import full_matmul_precision
 from safe_control_gym_tpu_torch.ops.qp import admm_qp
+from safe_control_gym_tpu_torch.parallel.sharding import batch_split
 from safe_control_gym_tpu_torch.safety_filters.base_safety_filter import BaseSafetyFilter
 from safe_control_gym_tpu_torch.safety_filters.cbf.cbf_utils import (cartesian_product,
                                                                      cbf_cartpole,
@@ -172,6 +175,7 @@ class CBF(BaseSafetyFilter):
         return (torch.zeros((B, self.model.nu), device=self.device),
                 torch.zeros((B,), device=self.device))
 
+    @batch_split(2)
     def certify_action_batch(self, states, actions):
         """B (state, action) pairs certified as one batched solve. Returns
         ``(certified_actions (B, nu), feasible (B,) bool)``, numpy."""
@@ -185,8 +189,12 @@ class CBF(BaseSafetyFilter):
         return host[:, :nu], self._feasible(host[:, nu], host[:, nu + 1])
 
     def shard_over(self, mesh, axis_name: str = 'data'):
-        raise NotImplementedError('CBF.shard_over: multi-GPU batches come with ROADMAP '
-                                  'item 14 (torch.distributed)')
+        """Split the B problems of ``certify_action_batch`` over ``axis_name``
+        of ``mesh`` (``parallel/sharding.py``): rank r certifies rows ``[r
+        B/W, (r+1) B/W)`` and every rank returns the whole batch. A B that
+        does not divide over the axis raises ValueError."""
+        mesh.check_device(self.device)
+        self._solve_mesh, self._solve_mesh_axis = mesh, axis_name
 
     def certify_action(self, current_state, uncertified_action, info=None
                        ) -> Tuple[np.ndarray, bool]:

@@ -34,7 +34,9 @@ Port of ``safe_control_gym_tpu/safety_filters/mpsc/linear_mpsc.py``
 * ``save``/``load`` keep P (and the terminal set's vertices) as a pickle of
   numpy arrays, read through the port's restricted unpickler.
 
-``shard_over`` (multi-GPU batches) raises until ROADMAP item 14.
+``shard_over(mesh)`` splits the B problems of ``certify_action_batch`` over
+``torch.distributed`` ranks (``parallel/sharding.batch_split``): each rank
+certifies its rows and every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from safe_control_gym_tpu_torch.envs.constraints import (ConstrainedVariableType
 from safe_control_gym_tpu_torch.math.linalg import (discretize_linear_system,
                                                     full_matmul_precision)
 from safe_control_gym_tpu_torch.ops.qp import admm_qp
+from safe_control_gym_tpu_torch.parallel.sharding import batch_split
 from safe_control_gym_tpu_torch.safety_filters.mpsc.mpsc import MPSC
 from safe_control_gym_tpu_torch.safety_filters.mpsc.mpsc_utils import (
     Cost_Function, compute_RPI_set, ellipse_bounding_box, pontryagin_difference_AABB,
@@ -403,8 +406,13 @@ class LINEAR_MPSC(MPSC):
                                'certification.')
 
     def shard_over(self, mesh, axis_name: str = 'data'):
-        raise NotImplementedError('LINEAR_MPSC.shard_over: multi-GPU batches come with '
-                                  'ROADMAP item 14 (torch.distributed)')
+        """Split the B problems of ``certify_action_batch`` over ``axis_name``
+        of ``mesh`` (``parallel/sharding.py``): rank r certifies rows ``[r
+        B/W, (r+1) B/W)`` and every rank returns the whole batch;
+        ``batch_plans`` holds the rank's rows. A B that does not divide over
+        the axis raises ValueError."""
+        mesh.check_device(self.device)
+        self._solve_mesh, self._solve_mesh_axis = mesh, axis_name
 
     def _xeq_for(self, obs):
         """The re-linearization point of one observation (the rule of
@@ -423,6 +431,7 @@ class LINEAR_MPSC(MPSC):
         slack = tol * float(np.sum(np.sqrt(np.clip(np.diag(self.P), 0, None))))
         return np.einsum('bi,ij,bj->b', e, np.asarray(self.P), e) <= (1.0 + slack) ** 2 + 1e-6
 
+    @batch_split(2)
     def certify_action_batch(self, states, uncertified_actions):
         """B independent cold-started tube solves as one batched solve on
         the env's device. Infeasible rows take the last rung of the ladder,

@@ -26,7 +26,9 @@ from safe_control_gym_tpu.utils.registration import make as jmake
 from safe_control_gym_tpu_torch.controllers.rarl.rarl_utils import split_obs_by_adversary
 from safe_control_gym_tpu_torch.math.optim import tree_leaves
 from safe_control_gym_tpu_torch.utils.convert import env_state_from_numpy, env_state_to_numpy
+from safe_control_gym_tpu_torch.parallel.sharding import make_env_mesh
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
+from tests.torch_sharding_ranks import one_rank
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -273,8 +275,18 @@ def test_rap_learn_save_load_and_fused_cycles(tmp_path):
     for got, want in zip(fresh.adversaries, ctrl.adversaries):
         for g, w in zip(tree_leaves(got.params), tree_leaves(want.params)):
             _close(g, w, 0)
-    with pytest.raises(NotImplementedError, match='item 14'):
-        ctrl.shard_over(mesh=None)
+    # Sharded over a world of one rank, a restored run rolls out as another
+    # unsharded one does (the same generator, envs and members).
+    twin = _port_rarl('rap', tmp_path / 't', seed=5, num_adversaries=2)
+    twin.load(ctrl.checkpoint_path)
+    with one_rank():
+        fresh.shard_over(make_env_mesh())
+        got, want = fresh.rollout(), twin.rollout()
+    twin.close()
+    for g, w in zip(got[:2], want[:2]):
+        for k in w:
+            _close(g[k], w[k], 1e-6)
+    _close(got[2], want[2], 1e-6)
     with pytest.raises(ValueError, match='adversary_disturbance'):
         tmake('rarl', functools.partial(tmake, 'cartpole', device='cpu'))
     ctrl.close()

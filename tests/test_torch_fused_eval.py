@@ -17,7 +17,9 @@ from safe_control_gym_tpu.utils.registration import get_config as jget
 from safe_control_gym_tpu.utils.registration import make as jmake
 from safe_control_gym_tpu_torch.experiments import fused_eval as tfe
 from safe_control_gym_tpu_torch.experiments.rl_configs import eval_config
+from safe_control_gym_tpu_torch.parallel.sharding import make_env_mesh
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
+from tests.torch_sharding_ranks import one_rank
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -144,8 +146,8 @@ def test_gates_refuse_what_neither_path_reproduces(tmp_path):
                                            **_task_config('cartpole')))
     with pytest.raises(ValueError, match='stochastic mode is PPO-only'):
         tctrl.evaluate_fused(batch=4, n_steps=3, stochastic=True)
-    with pytest.raises(NotImplementedError, match='item 14'):
-        tctrl.evaluate_fused(batch=4, n_steps=3, mesh=object())
+    with one_rank(), pytest.raises(ValueError, match='runs the per-step path'):
+        tctrl.evaluate_fused(batch=4, n_steps=3, mesh=make_env_mesh(), use_kernel=True)
     tctrl.close()
     physical = dict(_task_config('cartpole'), normalized_rl_action_space=False)
     ddpg = tmake('ddpg', functools.partial(tmake, 'cartpole', device='cpu', **physical))

@@ -49,7 +49,9 @@ from safe_control_gym_tpu_torch.controllers.mpc.mpc import MPC as TMPC
 from safe_control_gym_tpu_torch.envs.dynamics import CartPoleParams, cartpole_dynamics, rk4_step
 from safe_control_gym_tpu_torch.experiments.control_configs import control_config, load
 from safe_control_gym_tpu_torch.utils.registration import get_config as tget
+from safe_control_gym_tpu_torch.parallel.launch import spawn_local
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
+from tests import torch_sharding_ranks
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -217,10 +219,14 @@ def test_run_returns_the_results_dict():
     assert total == t2
 
 
-def test_unported_paths_raise():
-    t = tmake('mpc', functools.partial(tmake, 'cartpole', device='cpu'), horizon=3, **OUT)
-    with pytest.raises(NotImplementedError, match='item 14'):
-        t.shard_over(None)
+def test_unported_paths_raise(tmp_path):
+    """``MPC.shard_over`` on two gloo ranks, and GP-MPC's, which inherits the
+    split of its batch: a batch of 3 problems does not divide over them and
+    raises ValueError on each rank, as the JAX package's placement refuses
+    it."""
+    messages = spawn_local(torch_sharding_ranks.mpc_indivisible, 2, args=(str(tmp_path),))
+    assert [len(m) for m in messages] == [2, 2], messages
+    assert all('a batch of 3 does not divide' in m for ms in messages for m in ms), messages
 
 
 class _ScenarioMPC(TMPC):

@@ -29,7 +29,9 @@ from safe_control_gym_tpu_torch.math import random_processes as trp
 from safe_control_gym_tpu_torch.math import schedules as tsched
 from safe_control_gym_tpu_torch.math.optim import tree_leaves
 from safe_control_gym_tpu_torch.utils.convert import env_state_from_numpy
+from safe_control_gym_tpu_torch.parallel.sharding import make_env_mesh
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
+from tests.torch_sharding_ranks import one_rank
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -331,7 +333,14 @@ def test_learn_run_save_load_and_bookkeeping(tmp_path):
     obs = np.float32([0.05, -0.1, 0.02, 0.3])
     _close(fresh.select_action(obs), ctrl.select_action(obs), 1e-6)
     assert torch.equal(fresh.gen.get_state(), ctrl.gen.get_state())
-    with pytest.raises(NotImplementedError, match='item 14'):
-        ctrl.shard_over(mesh=None)
+    # Sharded over a world of one rank, a restored run collects and updates
+    # as another unsharded one does: the same envs, draws and samples.
+    twin = _port_ctrl('sac', tmp_path / 't', seed=4)
+    twin.load(ctrl.checkpoint_path)
+    with one_rank():
+        fresh.shard_over(make_env_mesh())
+        _close(fresh.collect(False), twin.collect(False), 1e-6)
+        _close(fresh.train_phase(), twin.train_phase(), 1e-6)
+    twin.close()
     ctrl.close()
     fresh.close()

@@ -54,9 +54,11 @@ from safe_control_gym_tpu_torch.controllers.off_policy_utils import (replay_init
                                                                      replay_sample)
 from safe_control_gym_tpu_torch.experiments.control_configs import load, safety_config
 from safe_control_gym_tpu_torch.math.metrics import compute_cvar
+from safe_control_gym_tpu_torch.parallel.sharding import make_env_mesh
 from safe_control_gym_tpu_torch.safety_filters.mpsc import mpsc_utils as tutils
 from safe_control_gym_tpu_torch.utils.registration import get_config as tget
 from safe_control_gym_tpu_torch.utils.registration import make as tmake
+from tests.torch_sharding_ranks import one_rank
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = os.path.join(ROOT, 'examples', 'mpsc', 'models')
@@ -494,8 +496,14 @@ def test_save_load_and_unported_paths(tmp_path):
         t2.solve_optimization(MPSC_STATES[0], MPSC_ACTIONS[0])
     t2.load(path)
     np.testing.assert_array_equal(t2.P, t.P)
-    with pytest.raises(NotImplementedError, match='item 14'):
-        t2.shard_over(None)
+    # Sharded over a world of one rank, the batch certifies as unsharded.
+    want = t2.certify_action_batch(MPSC_STATES, MPSC_ACTIONS)
+    with one_rank():
+        t2.shard_over(make_env_mesh(axis_name='data'))
+        got = t2.certify_action_batch(MPSC_STATES, MPSC_ACTIONS)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    t2._solve_mesh = None
     with pytest.raises(NotImplementedError, match='select_action'):
         t2.select_action(MPSC_STATES[0])
     with open(path, 'wb') as f:
