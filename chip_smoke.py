@@ -7,13 +7,15 @@ filters (linear MPSC, CBF, CBF-NN), SAC and DDPG training, RARL, RAP and
 SafeExplorerPPO with the env's adversary channel, the experiment layer
 (train_rl_controller, the vectorized envs, HPO with population PPO), the
 env's remaining features (the 1D quad, the physics modes, randomized
-inertial properties, rendering) and the multi-GPU paths over
-torch.distributed (on this one card) through the port's entry points.
+inertial properties, rendering), the multi-GPU paths over
+torch.distributed (on this one card) and the example scripts through the
+port's entry points.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase safety    # phases control, mpc, gp_mpc, safety,
                                             # off_policy, robust, experiment,
-                                            # env_extras, multigpu alone
+                                            # env_extras, multigpu, examples
+                                            # alone
                                             # (comma-separated), no result
                                             # line
 
@@ -285,7 +287,31 @@ Phases, one JSON line each:
                counts, K1 launches on each rank equal to the unsharded run's)
                and the reported spreads are listed at MG_WORLD; each case's
                seconds on each rank beside the unsharded rank's;
- 20. kernels   one entry per kernel with its launches, error, times and bound
+ 20. examples  the entry points of safe_control_gym_tpu_torch/examples (the
+               examples/ scripts of the JAX package), one cell each on the card
+               through its run() or main(), its launches gated (each K1-K3 loop
+               exactly its env steps), its seconds printed, and held to the same
+               cell on the port's CPU (the CPU's cells in worker processes
+               meanwhile): verbose_api's printed arrays, the lqr, pid (the 3D
+               custom waypoints through set_reference), mpc, rl (the committed
+               2D SAC model), mpsc (the committed filter) and cbf experiments'
+               metrics and actions (1e-4); batched_ilqr_demo at EX_B (the first
+               rows' costs 1e-3, flags and iterations equal), batched_mpc_demo
+               and batched_gp_mpc_demo at EX_B (the first rows by phase safety's
+               _agree, flags and capped counts equal), scenario_mpc_demo on
+               1 s episodes (costs 1e-4, the identified length equal), the
+               sharded sweep's solvers with the committed RPI set (phase safety
+               runs learn() on the card), the certification demo on that warm
+               filter at EX_B, then the sweep at EX_B on one NCCL rank in this
+               process (the first rows against the CPU's filter and NMPC),
+               fused_eval_demo at EX_EVAL (K4 in policy mode, the JAX test's
+               bars), differentiable_sim_demo at EX_DIFF (the first cost 1e-4,
+               the cost falls; phase mpc holds its gradient), one HPO
+               trial (the sampler's parameters equal), train_rl and
+               generate_pretrained (one iteration each, into a temporary
+               directory) with rl_experiment loading each model back on the card
+               and the CPU (1e-4);
+ 21. kernels   one entry per kernel with its launches, error, times and bound
                (K1-K3 also with train_launches and train_shape, from phase
                ppo_train, control_launches and control_shape, from phase
                control, mpc_launches, mpc_shape and grad_max_abs_err, from
@@ -295,10 +321,12 @@ Phases, one JSON line each:
                off_policy, robust_launches and robust_shape, from phase
                robust, experiment_launches and experiment_shape, from phase
                experiment, env_extras_launches and env_extras_shape,
-               from phase env_extras, and multigpu_launches and
+               from phase env_extras, multigpu_launches and
                multigpu_shape, the two gloo ranks' launches in phase
-               multigpu; K4's policy row also with off_policy_launches, the
-               trained actors' evaluate_fused launches).
+               multigpu, and examples_launches and examples_shape, from phase
+               examples; K4's policy row also with off_policy_launches, the
+               trained actors' evaluate_fused launches, and examples_launches,
+               fused_eval_demo's).
 The last line is {"ok": true, "device": {...}}. Any failure raises before it,
 and the exit code is then not 0. Without a CUDA device it exits with code 2.
 """
@@ -4400,6 +4428,416 @@ def multigpu(dev, smi):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase examples: the entry points of safe_control_gym_tpu_torch/examples.
+EX_STEPS = 10            # the experiments' loops, cut as the JAX package's tests cut them
+EX_B = 256               # the batched demos and the sharded sweep (one NCCL rank)
+EX_CPU_ROWS = 8          # batch rows held to the port's CPU solve of them
+EX_ILQR_CPU_ROWS = 4
+EX_SCENARIOS = 8
+EX_SCENARIO_SEC = 1      # the scenario demo's episodes, 15 steps each (6 s in the demo)
+EX_EVAL = (4096, 250)    # fused_eval_demo's batch and steps
+EX_DIFF = (10, 2)        # differentiable_sim_demo's T and iterations (60 and 500 in the demo)
+EX_HPO = ['algo_config.max_env_steps=1600', 'hpo_config.trials=1',
+          "hpo_config.hps_config={'actor_lr': 1, 'critic_lr': 1, 'entropy_coef': 1}"]
+EX_TRAIN = ['algo_config.max_env_steps=1200', 'algo_config.rollout_batch_size=8']
+EX_OFF_GOAL = "task_config.init_state={'init_x': 0.1, 'init_theta': 0.05}"
+
+
+def _ex_yaml(directory, system, *names):
+    return [os.path.join(ROOT, 'examples', directory, 'config_overrides', system, n)
+            for n in names]
+
+
+# The experiment cells: (module under safe_control_gym_tpu_torch.examples, its
+# command line, run()'s arguments, the physics kernel its loops step, its env
+# steps). randomized_init is off: the card's generator and the CPU's draw
+# other initial states (tests/test_torch_examples.py runs the same cells
+# against the JAX package).
+EX_EXPERIMENTS = {
+    'verbose_api': ('no_controller.verbose_api', [
+        '--task', 'cartpole', '--overrides',
+        os.path.join(ROOT, 'examples', 'no_controller', 'config_overrides',
+                     'verbose_api_cartpole.yaml'),
+        '--kv_overrides', 'task_config.randomized_init=False'], {}, 'cartpole_advance', 1),
+    'lqr_experiment': ('lqr.lqr_experiment', [
+        '--algo', 'lqr', '--task', 'cartpole', '--overrides',
+        *_ex_yaml('lqr', 'cartpole', 'cartpole_stab.yaml', 'lqr_cartpole_stab.yaml'),
+        '--kv_overrides', 'task_config.randomized_init=False'],
+        dict(n_episodes=None, n_steps=EX_STEPS), 'cartpole_advance', EX_STEPS),
+    'pid_experiment': ('pid.pid_experiment', [
+        '--algo', 'pid', '--task', 'quadrotor', '--overrides',
+        *_ex_yaml('pid', 'quadrotor_3D', 'quadrotor_3D_track.yaml',
+                  'pid_quadrotor_3D_track.yaml'),
+        '--kv_overrides', 'task_config.task_info.trajectory_type=custom'],
+        dict(n_episodes=None, n_steps=EX_STEPS), 'quad3d_advance', EX_STEPS),
+    'mpc_experiment': ('mpc.mpc_experiment', [
+        '--algo', 'linear_mpc', '--task', 'cartpole', '--overrides',
+        *_ex_yaml('mpc', 'cartpole', 'cartpole_stab.yaml', 'linear_mpc_cartpole_stab.yaml'),
+        '--kv_overrides', 'algo_config.horizon=10'],
+        dict(n_episodes=None, n_steps=EX_STEPS), 'cartpole_advance', EX_STEPS),
+    'rl_experiment': ('rl.rl_experiment', [
+        '--algo', 'sac', '--task', 'quadrotor', '--overrides',
+        *_ex_yaml('rl', 'quadrotor_2D', 'quadrotor_2D_stab.yaml', 'sac_quadrotor_2D.yaml'),
+        '--kv_overrides', 'algo_config.training=False', 'task_config.randomized_init=False'],
+        dict(n_episodes=None, n_steps=EX_STEPS), 'quad2d_advance', EX_STEPS),
+    'mpsc_experiment': ('mpsc.mpsc_experiment', [
+        '--task', 'cartpole', '--algo', 'lqr', '--safety_filter', 'linear_mpsc', '--overrides',
+        *_ex_yaml('mpsc', 'cartpole', 'cartpole_stab.yaml', 'lqr_cartpole.yaml',
+                  'linear_mpsc_cartpole.yaml'),
+        '--kv_overrides', 'sf_config.cost_function=one_step_cost'],
+        dict(training=False, n_episodes=None, n_steps=5), 'cartpole_advance', 10),
+    'cbf_experiment': ('cbf.cbf_experiment', [
+        '--algo', 'lqr', '--task', 'cartpole', '--safety_filter', 'cbf', '--overrides',
+        *_ex_yaml('cbf', 'cartpole', 'cartpole_stab.yaml', 'lqr_cartpole_stab.yaml',
+                  'cbf_cartpole_stab.yaml'),
+        '--kv_overrides', 'task_config.randomized_init=False', EX_OFF_GOAL],
+        dict(training=False, n_episodes=None, n_steps=EX_STEPS), 'cartpole_advance', EX_STEPS),
+}
+
+
+@contextlib.contextmanager
+def _argv(args):
+    """``sys.argv`` for an entry point that reads its command line."""
+    saved = sys.argv
+    sys.argv = ['example'] + list(args)
+    try:
+        yield
+    finally:
+        sys.argv = saved
+
+
+def _ex_numbers(out):
+    """An entry point's result as flat numpy: every metric (or printed array),
+    and of a run's records the actions, observations, rewards and the safety
+    filter's corrections (not its timestamps or infos)."""
+    flat = {}
+    parts = out if isinstance(out, tuple) else (out,)
+    for i, part in enumerate(parts):
+        records = isinstance(part.get('action'), list)
+        for key, value in part.items():
+            if records and key in ('action', 'obs', 'reward'):
+                value = np.concatenate([np.asarray(v, np.float64).reshape(len(v), -1)
+                                        for v in value])
+            elif records and key == 'safety_filter_data':
+                value = np.concatenate([np.asarray(c, np.float64).ravel()
+                                        for c in value['correction']])
+            elif records:
+                continue
+            flat[f'{i}.{key}'] = np.asarray(value, np.float64)
+    return flat
+
+
+def _ex_experiment(name, device):
+    """One experiment cell through its entry point on ``device``: its numbers."""
+    import importlib
+    module, args, kwargs, _, _ = EX_EXPERIMENTS[name]
+    mod = importlib.import_module(f'safe_control_gym_tpu_torch.examples.{module}')
+    with _argv(args + ['--device', str(device)]):
+        return _ex_numbers(mod.run(**kwargs))
+
+
+def _ex_sweep_solvers(device):
+    """sharded_sweep_demo's NMPC and filter on ``device``, the filter with
+    the committed RPI set (phase safety runs learn() on the card)."""
+    from safe_control_gym_tpu_torch.examples.mpc import sharded_sweep_demo as demo
+    from safe_control_gym_tpu_torch.utils.registration import make
+    env_func = functools.partial(make, 'cartpole', device=device, **demo.CFG)
+    ctrl = make('mpc', env_func, **demo.NMPC)
+    ctrl.reset()
+    sf = make('linear_mpsc', env_func, **demo.MPSC)
+    sf.load(os.path.join(ROOT, 'examples', 'mpsc', 'models', 'linear_mpsc_cartpole.pkl'))
+    return ctrl, sf
+
+
+def _ex_batch_inputs(kind):
+    """A batched demo's B inputs: states, and the actions to certify."""
+    from safe_control_gym_tpu_torch.examples.mpc import sharded_sweep_demo
+    from safe_control_gym_tpu_torch.examples.mpsc import batched_certification_demo
+    if kind == 'certification':
+        return batched_certification_demo.demo_inputs(EX_B)
+    if kind in ('nmpc', 'sweep certification'):
+        return sharded_sweep_demo.sweep_inputs(EX_B)
+    return np.random.default_rng(0).uniform(-0.3, 0.3, (EX_B, 4)).astype(np.float32), None
+
+
+def _ex_cpu_rows(kind):
+    """The CPU's answers (actions, flags) to a batched demo's first
+    EX_CPU_ROWS problems, and to each one's SAFETY_PERTURBED changed states
+    (the row's action kept): (actions, flags, variants (rows, n, nu))."""
+    states, actions = _ex_batch_inputs(kind)
+    if kind == 'batched_mpc_demo':
+        from safe_control_gym_tpu_torch.examples.mpc import batched_mpc_demo
+        _, solve = batched_mpc_demo.build_batched_solver(device='cpu')
+        fn = lambda s, a: (lambda u, res: (u.numpy(), res.numpy() < 1e-2))(*solve(s))
+    elif kind == 'batched_gp_mpc_demo':
+        from safe_control_gym_tpu_torch.examples.mpc import batched_gp_mpc_demo
+        gp = batched_gp_mpc_demo.build_controller(device='cpu')
+        fn = lambda s, a: gp.select_action_batch(s)
+    elif kind == 'nmpc':
+        ctrl, _ = _ex_sweep_solvers('cpu')
+        fn = lambda s, a: ctrl.select_action_batch(s)
+    else:
+        _, sf = _ex_sweep_solvers('cpu')
+        fn = sf.certify_action_batch
+    n, k = EX_CPU_ROWS, SAFETY_PERTURBED
+    out = fn(states[:n], None if actions is None else actions[:n])
+    changed = np.concatenate([_perturbed(states[i]) for i in range(n)])
+    moved = fn(changed, None if actions is None else np.repeat(actions[:n], k, axis=0))
+    return out[0], out[1], moved[0].reshape(n, k, -1), out[2:]
+
+
+def _ex_cpu_worker(task, *args):
+    """A CPU reference in a worker process (one torch thread)."""
+    torch.set_num_threads(1)
+    if task == 'experiments':
+        return {name: _ex_experiment(name, 'cpu') for name in args[0]}
+    if task == 'rows':
+        return _ex_cpu_rows(args[0])
+    if task == 'ilqr':
+        from safe_control_gym_tpu_torch.examples.lqr import batched_ilqr_demo
+        return batched_ilqr_demo.main(B=EX_ILQR_CPU_ROWS, device='cpu')
+    if task == 'scenario':
+        from safe_control_gym_tpu_torch.examples.mpc import scenario_mpc_demo as demo
+        demo.TASK = dict(demo.TASK, episode_len_sec=EX_SCENARIO_SEC)
+        return demo.run(n_scenarios=EX_SCENARIOS, verbose=False, device='cpu')
+    if task == 'diff':
+        from safe_control_gym_tpu_torch.examples import differentiable_sim_demo
+        _, cost_and_grad = differentiable_sim_demo.build(EX_DIFF[0], 'cpu')
+        return float(cost_and_grad(torch.zeros((EX_DIFF[0], 1)))[0])
+    if task == 'hpo':
+        from safe_control_gym_tpu_torch.examples.hpo import hpo_experiment
+        with _argv(args[0]):
+            return [t['params'] for t in hpo_experiment.run().trials]
+    raise ValueError(task)
+
+
+def _ex_expect(label, moved, want):
+    """Each kernel's launches exactly ``want``'s (0 where it names none)."""
+    wrong = {k: v for k, v in moved.items() if v != want.get(k, 0)}
+    if wrong:
+        raise RuntimeError(f'examples {label}: launches {moved}, expected {want}')
+
+
+def _ex_close(label, got, want, atol):
+    """Every number of ``got`` within ``atol`` (absolute and relative) of
+    ``want``'s, the same keys; the largest error."""
+    if set(got) != set(want):
+        raise RuntimeError(f'examples {label}: keys {sorted(got)} against {sorted(want)}')
+    err = 0.0
+    for key in want:
+        a, b = np.asarray(got[key], np.float64), np.asarray(want[key], np.float64)
+        if a.shape != b.shape or not np.allclose(a, b, rtol=atol, atol=atol):
+            raise RuntimeError(f'examples {label}: {key} {a} against the CPU\'s {b}')
+        err = max(err, float(np.max(np.abs(a - b), initial=0.0)))
+    return err
+
+
+def _ex_rows(label, card_u, card_f, cpu, atol):
+    """The first rows of a card batch against the CPU's solve of them
+    (``_ex_cpu_rows``' result): flags equal; each action within ``atol``,
+    or, where the CPU's own answer moves by more under 1e-7 changes of its
+    state, one of its answers within it (phase safety's ``_agree``)."""
+    cpu_u, cpu_f, variants = cpu[:3]
+    n = cpu_u.shape[0]
+    err = np.abs(np.asarray(card_u[:n], np.float64) - cpu_u).reshape(n, -1).max(axis=1)
+    moved = [dict(row=int(i), card_err=float(err[i]),
+                  **_agree(card_u[i], cpu_u[i], list(variants[i])))
+             for i in np.flatnonzero(err > atol)]
+    row = dict(rows=n, action_max_abs_err=float(err.max()), rows_beyond_atol=moved,
+               flags_equal=bool(np.array_equal(np.asarray(card_f)[:n], cpu_f)))
+    if not row['flags_equal'] or not all(m['ok'] for m in moved):
+        raise RuntimeError(f'examples {label}: the card differs from the CPU: {row}')
+    return row
+
+
+def examples(dev, smi):
+    """Phase examples: one cell of each entry point of
+    safe_control_gym_tpu_torch/examples on the card, each held to the same
+    cell on the port's CPU (computed in worker processes meanwhile); see the
+    module docstring."""
+    from safe_control_gym_tpu_torch.examples import differentiable_sim_demo, generate_pretrained
+    from safe_control_gym_tpu_torch.examples.hpo import hpo_experiment
+    from safe_control_gym_tpu_torch.examples.lqr import batched_ilqr_demo
+    from safe_control_gym_tpu_torch.examples.mpc import (batched_gp_mpc_demo, batched_mpc_demo,
+                                                         scenario_mpc_demo, sharded_sweep_demo)
+    from safe_control_gym_tpu_torch.examples.mpsc import batched_certification_demo
+    from safe_control_gym_tpu_torch.examples.rl import fused_eval_demo, rl_experiment, train_rl
+    t_phase = time.perf_counter()
+    rows, seconds, total = {}, {}, {}
+
+    def cell(name, want, fn, *args, **kwargs):
+        """``fn`` on the card, timed, its launches held to ``want``."""
+        before = _policy_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in _policy_counts().items()}
+        for k, v in moved.items():
+            total[k] = total.get(k, 0) + v
+        emit('examples', part=name, seconds=seconds[name], launches=moved)
+        _ex_expect(name, moved, want)
+        return out, moved
+
+    hpo_args = (['--algo', 'ppo', '--task', 'cartpole', '--overrides']
+                + [os.path.join(ROOT, p) for p in EXP_HPO_OVERRIDES] + ['--kv_overrides']
+                + EX_HPO)
+    batches = ('batched_mpc_demo', 'batched_gp_mpc_demo', 'certification', 'nmpc',
+               'sweep certification')
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            max_workers=4, mp_context=multiprocessing.get_context('spawn')) as pool:
+        cpu = {'experiments': pool.submit(_ex_cpu_worker, 'experiments', list(EX_EXPERIMENTS)),
+               'hpo': pool.submit(_ex_cpu_worker, 'hpo', hpo_args + [
+                   '--device', 'cpu', '--output_dir', os.path.join(tmp, 'hpo_cpu')]),
+               'ilqr': pool.submit(_ex_cpu_worker, 'ilqr'),
+               **{kind: pool.submit(_ex_cpu_worker, 'rows', kind) for kind in batches},
+               'scenario': pool.submit(_ex_cpu_worker, 'scenario'),
+               'diff': pool.submit(_ex_cpu_worker, 'diff')}
+        # The experiments.
+        card_exp = {}
+        for name, (_, _, _, kname, steps) in EX_EXPERIMENTS.items():
+            card_exp[name], moved = cell(name, {kname: steps}, _ex_experiment, name, dev)
+            rows[name] = dict(steps=steps, launches=moved)
+        # Batched iLQR: two solves of T=45 x 10 iterations.
+        ilqr, _ = cell('batched_ilqr_demo', {'cartpole_advance': 2 * 10 * 45},
+                       batched_ilqr_demo.main, B=EX_B, device=dev)
+        # Batched MPC: no env step.
+        (mpc_u, mpc_res), _ = cell('batched_mpc_demo', {}, batched_mpc_demo.main,
+                                   [str(EX_B), '--device', str(dev)])
+        # Batched GP-MPC: learn() (60 samples), then two batches of 2 passes.
+        (gp_u, gp_feas, gp_binds), _ = cell('batched_gp_mpc_demo', {'cartpole_advance': 60},
+                                            batched_gp_mpc_demo.main,
+                                            [str(EX_B), '--device', str(dev)])
+        # The scenario demo on short episodes: 2 x 15 steps.
+        saved_task = scenario_mpc_demo.TASK
+        scenario_mpc_demo.TASK = dict(saved_task, episode_len_sec=EX_SCENARIO_SEC)
+        try:
+            scen, _ = cell('scenario_mpc_demo', {'cartpole_advance': 2 * 15 * EX_SCENARIO_SEC},
+                           scenario_mpc_demo.run, n_scenarios=EX_SCENARIOS, verbose=False,
+                           device=dev)
+        finally:
+            scenario_mpc_demo.TASK = saved_task
+        # The sweep's solvers; the certification demo on that warm filter, then
+        # the sweep on one NCCL rank.
+        (ctrl, sf), _ = cell('sharded_sweep_demo', {}, _ex_sweep_solvers, dev)
+        (cert, ok), _ = cell('batched_certification_demo', {},
+                             batched_certification_demo.certify, sf, EX_B, dev)
+        sweep, _ = cell('sharded_sweep_demo', {}, sharded_sweep_demo.one_nccl_rank, EX_B,
+                        solvers=(ctrl, sf))
+        # The fleet evaluation: K4 in policy mode, a warm-up and a timed launch.
+        res, _ = cell('fused_eval_demo', {'cartpole_rollout': 2, 'cartpole_rollout.policy': 2},
+                      fused_eval_demo.main, [str(EX_EVAL[0]), str(EX_EVAL[1]), '--device',
+                                             str(dev)])
+        rows['fused_eval_demo'] = dict(path=res['path'], episodes=res['episodes'],
+                                       ep_length_mean=res['ep_length_mean'],
+                                       ep_return_mean=res['ep_return_mean'],
+                                       steps_per_sec=res['steps_per_sec'])
+        if not (res['ep_length_mean'] > 150
+                and res['ep_return_mean'] > 0.7 * res['ep_length_mean']):
+            raise RuntimeError(f'examples fused_eval_demo: {rows["fused_eval_demo"]}')
+        # The differentiable simulation: T steps a cost, iterations + 2 costs
+        # (phase mpc holds the demo's gradient to the CPU's).
+        T, iters = EX_DIFF
+        (c0, c1), _ = cell('differentiable_sim_demo', {'cartpole_advance': (iters + 2) * T},
+                           differentiable_sim_demo.main, T=T, iters=iters, device=dev)
+        # HPO: one trial of one iteration of 16 x 100 and its 251-step eval.
+        with _argv(hpo_args + ['--device', str(dev), '--output_dir', os.path.join(tmp, 'hpo')]):
+            study, _ = cell('hpo_experiment', {'cartpole_advance': 100 + 251},
+                            hpo_experiment.run)
+        # train_rl (one iteration of 8 x 150), then generate_pretrained's
+        # ppo_cartpole_stab (one iteration of 64 x 150); rl_experiment loads
+        # each model back, on the card and on the CPU.
+        train_args = (['--algo', 'ppo', '--task', 'cartpole', '--overrides',
+                       *_ex_yaml('rl', 'cartpole', 'cartpole_stab.yaml', 'ppo_cartpole.yaml'),
+                       '--output_dir', os.path.join(tmp, 'train'), '--kv_overrides']
+                      + EX_TRAIN)
+        with _argv(train_args + ['--device', str(dev)]):
+            path, _ = cell('train_rl', {'cartpole_advance': 150}, train_rl.run,
+                           curr_path=os.path.join(tmp, 'train'))
+        paths, _ = cell('generate_pretrained', {'cartpole_advance': 150}, generate_pretrained.main,
+                        ['--only', 'ppo_cartpole_stab', '--steps', '1', '--out_dir',
+                         os.path.join(tmp, 'pretrained'), '--device', str(dev)])
+        eval_args = ['--algo', 'ppo', '--task', 'cartpole', '--overrides',
+                     *_ex_yaml('rl', 'cartpole', 'cartpole_stab.yaml', 'ppo_cartpole.yaml'),
+                     '--kv_overrides', 'algo_config.training=False',
+                     'task_config.randomized_init=False', EX_OFF_GOAL]
+        for label, model, curr in (('train_rl', path, os.path.join(tmp, 'train')),
+                                   ('generate_pretrained', paths['ppo_cartpole_stab'],
+                                    os.path.join(tmp, 'pretrained', 'rl'))):
+            run = functools.partial(rl_experiment.run, n_episodes=None, n_steps=EX_STEPS,
+                                    curr_path=curr)
+            with _argv(eval_args + ['--device', str(dev)]):
+                card_run, _ = cell('rl_experiment', {'cartpole_advance': EX_STEPS}, run)
+            with _argv(eval_args + ['--device', 'cpu']):
+                cpu_run = run()
+            rows[label] = dict(path=os.path.relpath(model, tmp), rl_experiment_max_abs_err=(
+                _ex_close(f'{label} -> rl_experiment', _ex_numbers(card_run),
+                          _ex_numbers(cpu_run), CONTROL_ATOL)))
+
+        # The CPU's references.
+        cpu_exp = cpu['experiments'].result()
+        for name in EX_EXPERIMENTS:
+            rows[name]['max_abs_err'] = _ex_close(name, card_exp[name], cpu_exp[name],
+                                                  CONTROL_ATOL)
+        ilqr_h, r = cpu['ilqr'].result(), EX_ILQR_CPU_ROWS
+        rows['batched_ilqr_demo'] = dict(B=EX_B, converged=int(ilqr['converged'].sum()),
+                                         cost=ilqr['cost'][:r].tolist(),
+                                         cpu_cost=ilqr_h['cost'].tolist())
+        if not (np.allclose(ilqr['cost'][:r], ilqr_h['cost'], rtol=CONTROL_RTOL)
+                and np.array_equal(ilqr['converged'][:r], ilqr_h['converged'])
+                and np.array_equal(ilqr['iterations'][:r], ilqr_h['iterations'])):
+            raise RuntimeError(f'examples batched_ilqr_demo: {rows["batched_ilqr_demo"]}')
+        rows['batched_mpc_demo'] = dict(B=EX_B, converged=int((mpc_res < 1e-2).sum()), **_ex_rows(
+            'batched_mpc_demo', mpc_u, mpc_res < 1e-2, cpu['batched_mpc_demo'].result(),
+            MPC_ATOL))
+        gp_h = cpu['batched_gp_mpc_demo'].result()
+        rows['batched_gp_mpc_demo'] = dict(
+            B=EX_B, feasible=int(gp_feas.sum()), capped=int((gp_binds > 0).sum()),
+            binds_equal=bool(np.array_equal(gp_binds[:EX_CPU_ROWS], gp_h[3][0])),
+            **_ex_rows('batched_gp_mpc_demo', gp_u, gp_feas, gp_h, GP_ATOL))
+        if not rows['batched_gp_mpc_demo']['binds_equal']:
+            raise RuntimeError(f'examples batched_gp_mpc_demo: {rows["batched_gp_mpc_demo"]}')
+        scen_h = cpu['scenario'].result()
+        rows['scenario_mpc_demo'] = dict(cost_nominal=scen[0], cost_scenario=scen[1],
+                                         identified_pole_length=scen[2], cpu=scen_h)
+        if not (np.allclose(scen[:2], scen_h[:2], rtol=MPC_COST_RTOL) and scen[2] == scen_h[2]
+                and scen[1] < scen[0]):
+            raise RuntimeError(f'examples scenario_mpc_demo: {rows["scenario_mpc_demo"]}')
+        rows['batched_certification_demo'] = dict(
+            B=EX_B, feasible=int(ok.sum()), filter='the sharded sweep\'s (the committed P)',
+            **_ex_rows('batched_certification_demo', cert, ok, cpu['certification'].result(),
+                       SAFETY_ATOL))
+        rows['sharded_sweep_demo'] = dict(
+            B=EX_B, world=sweep['world'], backend='nccl', nmpc_seconds=sweep['nmpc_seconds'],
+            cert_seconds=sweep['cert_seconds'], nmpc_feasible=int(sweep['feasible'].sum()),
+            cert_feasible=int(sweep['cert_feasible'].sum()),
+            nmpc=_ex_rows('sharded_sweep_demo nmpc', sweep['u'], sweep['feasible'],
+                          cpu['nmpc'].result(), MPC_ATOL),
+            certification=_ex_rows('sharded_sweep_demo certification', sweep['certified'],
+                                   sweep['cert_feasible'], cpu['sweep certification'].result(),
+                                   SAFETY_ATOL))
+        cost_h = cpu['diff'].result()
+        rows['differentiable_sim_demo'] = dict(T=T, iterations=iters, cost_first=c0,
+                                               cost_last=c1, cost_cpu=cost_h)
+        if not (abs(c0 - cost_h) <= GRAD_RTOL * abs(cost_h) and c1 < c0):
+            raise RuntimeError(f'examples differentiable_sim_demo: '
+                               f'{rows["differentiable_sim_demo"]}')
+        params_h = cpu['hpo'].result()
+        rows['hpo_experiment'] = dict(trials=len(study.trials),
+                                      values=[t['value'] for t in study.trials],
+                                      params_equal=[t['params'] for t in study.trials] == params_h)
+        if not (rows['hpo_experiment']['params_equal']
+                and all(np.isfinite(rows['hpo_experiment']['values']))):
+            raise RuntimeError(f'examples hpo_experiment: {rows["hpo_experiment"]}')
+    for name, row in rows.items():
+        emit('examples', entry_point=name, seconds=seconds.get(name), card=smi, **row)
+    emit('examples', seconds_by_entry_point=seconds, launches=total,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    return total, rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4433,7 +4871,8 @@ def main():
             timed(phase, {'control': control, 'mpc': mpc, 'gp_mpc': gp_mpc,
                           'safety': safety, 'off_policy': off_policy,
                           'robust': robust, 'experiment': experiment,
-                          'env_extras': env_extras, 'multigpu': multigpu}[phase], dev, smi)
+                          'env_extras': env_extras, 'multigpu': multigpu,
+                          'examples': examples}[phase], dev, smi)
         emit('done', wall_seconds=time.perf_counter() - _T_START, seconds_by_phase=seconds,
              card=smi, phases=only)
         return
@@ -4455,6 +4894,7 @@ def main():
     ex_launches, ex_rows = timed('experiment', experiment, dev, smi)
     xt_launches, _ = timed('env_extras', env_extras, dev, smi)
     mg_launches, _ = timed('multigpu', multigpu, dev, smi)
+    eg_launches, eg_rows = timed('examples', examples, dev, smi)
     train_rows = {'cartpole': train['cartpole'], 'quadrotor': train['quadrotor_2D'],
                   'quadrotor_3D': train['quadrotor_3D']}
     for system in SYSTEMS:
@@ -4476,6 +4916,9 @@ def main():
                 f'{op_rows["ddpg k4"]["actor"]}); each held to the plain version over '
                 f'{T_OFF_POLICY_CHECK} steps (state errors {op_rows["sac k4"]["state_err"]}, '
                 f'{op_rows["ddpg k4"]["state_err"]})')
+            row['examples_launches'] = eg_launches['cartpole_rollout.policy']
+            row['examples_shape'] = (f'fused_eval_demo: the committed PPO model, B={EX_EVAL[0]} '
+                                     f'T={EX_EVAL[1]}, a warm-up and a timed launch')
     cycles_ms = lambda cycles: cycles / (serial['clock_ghz'] * 1e6)
     for system in SYSTEMS:
         # The per-step kernel's chain bound: n_substeps x one substep's
@@ -4583,6 +5026,16 @@ def main():
             f'{MG_WORLD}) mesh) 64 x 150 x {MG_PPO_ITERATIONS} iteration, SAC and RARL, the '
             f'population, evaluate_fused B={MG_B} T={MG_EVAL_T}; each rank its rows'
             if system == 'cartpole' else 'not on the multigpu path')
+        row['examples_launches'] = eg_launches[PHYSICS[system]['name']]
+        row['examples_shape'] = {
+            'cartpole': ('B=1: verbose_api, lqr/mpc/mpsc/cbf_experiment and rl_experiment on '
+                         'the trained models, the scenario demo, the filter\'s learn(), the '
+                         f'differentiable simulation (T={EX_DIFF[0]}); B={EX_B}: iLQR\'s two '
+                         'solves; GP-MPC\'s learn(); HPO, train_rl and generate_pretrained '
+                         'training'),
+            'quadrotor': f'B=1: rl_experiment of the committed SAC model ({EX_STEPS} steps)',
+            'quadrotor_3D': (f'B=1: pid_experiment on the custom waypoints ({EX_STEPS} steps, '
+                             'set_reference)')}[system]
         row['chain_cycles_per_substep'] = serial['cycles'][system]
         row['sm_clock_ghz'] = serial['clock_ghz']
         row['chain_bound_ms'] = cycles_ms(serial['cycles'][system] * N_SUB)

@@ -211,9 +211,14 @@ class RLController(BaseController):
 
     def _restore_generator(self, key):
         """The generator's state from a checkpoint's ``key``: the port's
-        (uint8 state) is restored; a JAX PRNG key has no counterpart, so the
-        generator is re-seeded from the controller's seed instead."""
-        if key is not None and np.asarray(key).dtype == np.uint8:
+        (uint8 state) is restored where it is a state of this device's
+        generator. A JAX PRNG key, or a state of the other device's generator
+        (a checkpoint saved on the card loaded on the CPU, or the reverse),
+        has no counterpart, so the generator is re-seeded from the
+        controller's seed instead."""
+        key = None if key is None else np.asarray(key)
+        if (key is not None and key.dtype == np.uint8
+                and key.size == self.gen.get_state().numel()):
             self.gen.set_state(torch.from_numpy(np.array(key, np.uint8)))
         else:
             self.gen.manual_seed(int(self.seed))

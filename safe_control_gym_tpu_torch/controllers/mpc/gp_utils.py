@@ -490,6 +490,37 @@ class GaussianProcessCollection:
             ls, sv, _as_f32(x_star, self.device), self.gps[0].kernel_fn)
         return means.T.cpu().numpy(), variances.T.cpu().numpy()
 
+    def make_casadi_predict_func(self):
+        """The D posterior means as one function z (d,) -> (D,) of tensors:
+        the GPs share their inputs, so the means are one stacked kernel and
+        one product."""
+        X, kernel_fn = self.gps[0].X, self.gps[0].kernel_fn
+        alphas = self.stacked(lambda gp: gp._alpha)
+        ls, sv, _ = self.hyper()
+
+        @full_matmul_precision
+        def predict(z):
+            k = kernel_fn(torch.atleast_2d(_as_f32(z, self.device)), X, ls, sv)[:, 0]
+            return torch.sum(k * alphas, dim=1)
+        return predict
+
+    def make_fitc_predict_func(self, n_ind_points, rand_state=0):
+        """The D FITC means as one function z (d,) -> (D,) over inducing
+        points shared by the GPs (``kmeans_centriods`` of the observed
+        inputs); returns the function and the inducing points (numpy)."""
+        X = self.gps[0].real_data()[0].cpu().numpy()
+        z_ind = kmeans_centriods(min(n_ind_points, X.shape[0]), X, rand_state=rand_state)
+        Z = _as_f32(z_ind, self.device)
+        ws = self.stacked(lambda gp: gp.fitc_weights(z_ind))
+        ls, sv, _ = self.hyper()
+        kernel_fn = self.gps[0].kernel_fn
+
+        @full_matmul_precision
+        def predict(z):
+            k = kernel_fn(torch.atleast_2d(_as_f32(z, self.device)), Z, ls, sv)[:, 0]
+            return torch.sum(k * ws, dim=1)
+        return predict, z_ind
+
     def add_data(self, inputs, targets):
         """Add (input, target) rows to every per-dim GP (masks applied) and
         refresh their posteriors."""

@@ -27,6 +27,7 @@ bookkeeping, the batched evaluation, ``save`` and ``load``.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -47,6 +48,9 @@ class ReplayState:
     data: Dict[str, torch.Tensor]   # each (max_size, dim)
     ptr: torch.Tensor               # int64, the next row to write
     count: torch.Tensor             # int64, rows pushed (may exceed max_size)
+
+    def replace(self, **changes) -> 'ReplayState':
+        return dataclasses.replace(self, **changes)
 
 
 def replay_init(specs: Dict[str, int], max_size: int, device='cuda') -> ReplayState:

@@ -1,10 +1,12 @@
 """BenchmarkEnv: the batched functional env core and a thin stateful shim, in PyTorch.
 
 Port of ``safe_control_gym_tpu/envs/benchmark_env.py``: ``Task``, ``Cost``,
-``EnvState``, ``StepOut``, ``_compile_rand_sampler``, the functional core built
-by ``_build_functional`` (``reset_batch``, the step with a generator or with
-pre-drawn noise, ``step_autoreset``, ``_observe``), and the ``reset()`` /
-``step()`` shim over a batch of one that returns numpy.
+``Environment``, ``EnvState``, ``StepOut``, ``_compile_rand_sampler``, the
+functional core built by ``_build_functional`` (``reset_batch``, the step
+with a generator or with pre-drawn noise, ``step_autoreset``, ``_observe``),
+and the ``reset()`` / ``step()`` shim over a batch of one that returns
+numpy; ``set_reference`` swaps ``X_GOAL`` (custom waypoints) and rebuilds
+the core around it.
 
 Where the JAX core maps a one-env function with ``vmap``, every function here
 takes the batch: states are (B, nx), counters (B,). Where JAX threads PRNG keys,
@@ -61,7 +63,7 @@ from safe_control_gym_tpu_torch.envs.spaces import Box
 from safe_control_gym_tpu_torch.envs.trajectories import generate_trajectory
 from safe_control_gym_tpu_torch.utils.device import resolve_device
 
-__all__ = ['Task', 'Cost', 'EnvState', 'StepOut', 'FuncEnv', 'BenchmarkEnv']
+__all__ = ['Task', 'Cost', 'Environment', 'EnvState', 'StepOut', 'FuncEnv', 'BenchmarkEnv']
 
 _CHANNELS = ('observation', 'action', 'dynamics')
 
@@ -74,6 +76,12 @@ class Task(str, Enum):
 class Cost(str, Enum):
     RL_REWARD = 'rl_reward'
     QUADRATIC = 'quadratic'
+
+
+class Environment(str, Enum):
+    """The implemented environments; a member compares equal to its id."""
+    CARTPOLE = 'cartpole'
+    QUADROTOR = 'quadrotor'
 
 
 @dataclass
@@ -108,6 +116,9 @@ class StepOut:
     noisy_action: torch.Tensor
     clipped_action: torch.Tensor
     physical_action: torch.Tensor
+
+    def replace(self, **changes) -> 'StepOut':
+        return dataclasses.replace(self, **changes)
 
 
 def _compile_rand_sampler(rand_info: Dict[str, Dict], names) -> Callable:
@@ -412,6 +423,12 @@ class BenchmarkEnv:
     def _denormalize_action(self, action):
         raise NotImplementedError
 
+    def denormalize_action(self, action):
+        raise NotImplementedError
+
+    def normalize_action(self, action):
+        raise NotImplementedError
+
     def _advance(self, x, clipped_action, dyn_force, params):
         raise NotImplementedError
 
@@ -699,6 +716,23 @@ class BenchmarkEnv:
         if self.GUI:
             self._update_viewer()
         return first(out.obs), float(out.reward[0]), bool(out.done[0]), info
+
+    def set_reference(self, x_goal):
+        """Replace ``X_GOAL`` (custom waypoint references) and rebuild the
+        functional core around it on the env's device: the reward, the MSE,
+        the goal-reached test and the observation's goal extension read the
+        new reference from the next step on. The running episode's
+        ``EnvState`` is kept. A tracking reference must keep the state's
+        width."""
+        x_goal = np.asarray(x_goal, np.float32)
+        if self.TASK == Task.TRAJ_TRACKING:
+            expected = int(np.atleast_2d(np.asarray(self.X_GOAL)).shape[1])
+            if np.atleast_2d(x_goal).shape[1] != expected:
+                raise ValueError(
+                    f'[ERROR] set_reference: expected {expected} state '
+                    f'columns, got {np.atleast_2d(x_goal).shape[1]}.')
+        self.X_GOAL = x_goal
+        self._build_functional()
 
     def set_state(self, state):
         """Overwrite the physical state mid-episode (GP-MPC's data collection

@@ -23,7 +23,7 @@ __all__ = [
     'ConstrainedVariableType', 'Constraint', 'QuadraticConstraint',
     'LinearConstraint', 'BoundedConstraint', 'DefaultConstraint',
     'SymmetricStateConstraint', 'ConstraintList', 'GENERAL_CONSTRAINTS',
-    'create_constraint_list',
+    'create_constraint_list', 'get_symbolic_constraint_models',
 ]
 
 
@@ -338,3 +338,8 @@ def create_constraint_list(constraint_specs: Sequence[Dict[str, Any]],
         cfg = {k: v for k, v in constraint.items() if k != 'constraint_form'}
         constraint_list.append(available_constraints[con_form](env, **cfg))
     return ConstraintList(constraint_list)
+
+
+def get_symbolic_constraint_models(constraint_list: ConstraintList):
+    """The pure constraint functions of every constraint in the list."""
+    return constraint_list.get_all_symbolic_models()

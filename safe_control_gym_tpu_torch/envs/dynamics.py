@@ -18,7 +18,7 @@ Python loop where JAX has ``lax.scan``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 from typing import Callable
 
 import torch
@@ -49,6 +49,9 @@ class _Params:
     def to(self, device):
         return type(self)(**{f.name: getattr(self, f.name).to(device)
                              for f in fields(self)})
+
+    def replace(self, **changes):
+        return replace(self, **changes)
 
     def _stack(self, *names) -> torch.Tensor:
         """The fields ``names`` side by side: (k,) where each is shared, (B, k)

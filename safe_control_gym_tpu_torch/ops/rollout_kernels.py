@@ -84,7 +84,8 @@ from safe_control_gym_tpu_torch.ops.physics_kernels import (cartpole_substeps,
 
 __all__ = ['cartpole_rollout', 'cartpole_rollout_plain', 'cartpole_rollout_cfg',
            'quad2d_rollout', 'quad3d_rollout', 'quad_rollout_plain',
-           'quad_rollout_cfg', 'rollout_task_kwargs', 'PolicyParams',
+           'quad_rollout_cfg', 'quad2d_rollout_cfg', 'quad3d_rollout_cfg',
+           'rollout_task_kwargs', 'PolicyParams',
            'pack_policy_params', 'check_policy_obs', 'policy_mean_plain',
            'philox4x32_10', 'philox_uniform4', 'standard_normal',
            'standard_normal_pair', 'wrap_angle', 'exact_math_check',
@@ -1169,3 +1170,8 @@ def quad_rollout_cfg(env):
     cfg[_Q['CON_LO']:_Q['CON_LO'] + nx] = env.state_space.low
     cfg[_Q['CON_HI']:_Q['CON_HI'] + nx] = env.state_space.high
     return torch.as_tensor(cfg, device=env.device)
+
+
+# The JAX package's names of the same builder, one for each quad type.
+quad2d_rollout_cfg = quad_rollout_cfg
+quad3d_rollout_cfg = quad_rollout_cfg
