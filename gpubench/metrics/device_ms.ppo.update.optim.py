@@ -1,0 +1,13 @@
+"""Card milliseconds a training iteration in the kernels launched while the
+host was in ``ppo.update.optim`` (each minibatch's two clip + Adam steps,
+the KL gate and the parameters' rebuild): the traced window's whole
+``ppo.iteration`` spans, each kernel put down by its place in its
+iteration to the innermost program span open at its launch
+(``harness/program_spans.py``). The five ``device_ms.*`` hold nearly all
+the iterations' kernel time, the split a fusion is judged by."""
+
+from gpubench.harness.program_spans import TRAIN, device_ms
+
+
+def read(ctx):
+    return device_ms(ctx, TRAIN, 'ppo.update.optim')

@@ -1,0 +1,13 @@
+"""Milliseconds a training iteration in which the card ran no kernel while the
+host was in ``ppo.rollout``'s own time (the policy side of the rollout: the
+observation normalizer, the actor and critic forwards, the sample and
+log-prob, the return normalizer, the per-step stores): the traced window's
+whole ``ppo.iteration`` spans, each moment put down to the innermost program
+span (``harness/program_spans.py``). With ``device_ms`` of the same span, the
+span's wall time."""
+
+from gpubench.harness.program_spans import TRAIN, idle_ms
+
+
+def read(ctx):
+    return idle_ms(ctx, TRAIN, 'ppo.rollout')

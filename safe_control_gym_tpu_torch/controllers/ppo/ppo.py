@@ -10,6 +10,9 @@ minibatch updates with the KL-gated actor step (``ppo_utils.PPOAgent``). No
 tensor is read back inside an iteration: its scalars come back once, with
 ``fused_iterations`` K iterations run back to back before that read.
 ``run`` evaluates the mode of the policy on ``n_episodes`` envs at once.
+While a profiler runs, each phase is a span of ``utils/profiling.py``
+(``ppo.iteration``, ``ppo.rollout``, ``env.step_autoreset``, ``ppo.returns``,
+``ppo.update``, ``ppo.update.grad``, ``ppo.update.optim``, ``ppo.read``).
 
 ``shard_over(mesh)`` trains data parallel over ``torch.distributed`` ranks
 (``parallel/sharding.py``): each rank steps its rows of the N envs (K1-K3
@@ -51,6 +54,7 @@ from safe_control_gym_tpu_torch.controllers.ppo.ppo_utils import (LOSS_NAMES, PP
 from safe_control_gym_tpu_torch.math.normalization import (rms_init, rms_normalize,
                                                            rms_update, ret_init,
                                                            ret_normalize, ret_update)
+from safe_control_gym_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ['PPO']
 
@@ -139,6 +143,10 @@ class PPO(RLController):
         rollout's mean reward, done count, mean mse and violation count,
         unread. ``noise`` (T, N, act_dim), pre-drawn standard normals, takes
         the place of the actions' draws from the generator."""
+        with annotate('ppo.rollout'):
+            return self._rollout(noise)
+
+    def _rollout(self, noise):
         params, activation = self.agent.params, self.agent.activation
         est, obs = self._env_states, self._obs
         obs_norm, ret_state = self.obs_norm_state, self.ret_norm_state
@@ -173,22 +181,23 @@ class PPO(RLController):
                          ('cviol', out.constraint_violation)):
                 ys[k].append(y)
             obs = next_obs
-        ys = {k: torch.stack(v) for k, v in ys.items()}
-        last_val = critic_value(params, self._normalize_obs(obs_norm, obs), activation)
-        rets, advs = compute_returns_and_advantages(
-            ys['rew'], ys['v'], ys['mask'], ys['term_v'], last_val, self.gamma,
-            bool(self.use_gae), float(self.gae_lambda))
-        advs = normalize_advantages(advs, psum)
-        m = ys['obs'].shape[0] * ys['obs'].shape[1]
-        batch = {'obs': ys['obs'].reshape(m, -1), 'act': ys['act'].reshape(m, -1),
-                 'logp': ys['logp'].reshape(m, -1), 'adv': advs.reshape(m, -1),
-                 'ret': rets.reshape(m, -1), 'v': ys['v'].reshape(m, -1)}
-        mean = psum.mean if sh else torch.mean
-        total = psum.sum if sh else torch.sum
-        stats = {'mean_reward': mean(ys['raw_rew']),
-                 'dones': total(ys['done'].to(torch.float32)),
-                 'mean_mse': mean(ys['mse']),
-                 'constraint_violations': total(ys['cviol'].to(torch.float32))}
+        with annotate('ppo.returns'):
+            ys = {k: torch.stack(v) for k, v in ys.items()}
+            last_val = critic_value(params, self._normalize_obs(obs_norm, obs), activation)
+            rets, advs = compute_returns_and_advantages(
+                ys['rew'], ys['v'], ys['mask'], ys['term_v'], last_val, self.gamma,
+                bool(self.use_gae), float(self.gae_lambda))
+            advs = normalize_advantages(advs, psum)
+            m = ys['obs'].shape[0] * ys['obs'].shape[1]
+            batch = {'obs': ys['obs'].reshape(m, -1), 'act': ys['act'].reshape(m, -1),
+                     'logp': ys['logp'].reshape(m, -1), 'adv': advs.reshape(m, -1),
+                     'ret': rets.reshape(m, -1), 'v': ys['v'].reshape(m, -1)}
+            mean = psum.mean if sh else torch.mean
+            total = psum.sum if sh else torch.sum
+            stats = {'mean_reward': mean(ys['raw_rew']),
+                     'dones': total(ys['done'].to(torch.float32)),
+                     'mean_mse': mean(ys['mse']),
+                     'constraint_violations': total(ys['cviol'].to(torch.float32))}
         self._env_states, self._obs = est, obs
         if self.norm_obs:
             self.obs_norm_state = obs_norm
@@ -199,17 +208,21 @@ class PPO(RLController):
     def _iterations(self, k: int):
         """``k`` iterations (rollout, then update) back to back; returns the
         mean of their losses and stats, read back once, and the seconds of
-        the rollouts and of the updates."""
+        the rollouts and of the updates. The read is the last iteration's."""
         values, marks = [], []
-        for _ in range(k):
-            m0 = self._mark()
-            batch, stats = self.rollout()
-            m1 = self._mark()
-            losses = self.agent.update_tensors(
-                batch, self.gen, rows=self._batch_rows)
-            marks.append((m0, m1, self._mark()))
-            values.append(torch.cat([losses, torch.stack([stats[n] for n in STAT_NAMES])]))
-        mean = torch.stack(values).mean(dim=0).cpu().numpy()
+        for i in range(k):
+            with annotate('ppo.iteration'):
+                m0 = self._mark()
+                batch, stats = self.rollout()
+                m1 = self._mark()
+                losses = self.agent.update_tensors(
+                    batch, self.gen, rows=self._batch_rows)
+                marks.append((m0, m1, self._mark()))
+                values.append(torch.cat([losses, torch.stack([stats[n] for n in STAT_NAMES])]))
+                if i == k - 1:
+                    with annotate('ppo.read'):
+                        mean = torch.stack(values).mean(dim=0).cpu().numpy()
+                        count('host_reads')
         results = {n: float(v) for n, v in zip(LOSS_NAMES + STAT_NAMES, mean)}
         for m0, m1, m2 in marks:
             self.train_seconds['rollout'] += self._seconds(m0, m1)

@@ -33,6 +33,7 @@ from safe_control_gym_tpu_torch.math.distributions import Categorical, Normal
 from safe_control_gym_tpu_torch.math.networks import mlp_apply, mlp_init
 from safe_control_gym_tpu_torch.math.optim import tree_leaves, tree_unflatten
 from safe_control_gym_tpu_torch.utils.device import resolve_device
+from safe_control_gym_tpu_torch.utils.profiling import annotate
 
 __all__ = ['init_actor_critic', 'actor_dist', 'critic_value',
            'compute_returns_and_advantages', 'normalize_advantages', 'PPOAgent']
@@ -245,24 +246,25 @@ class PPOAgent:
         if self.mesh is not None:
             a_grads, c_grads, losses = self._reduce(a_grads, c_grads, losses)
             kl = losses[3]
-        a_old = [p.detach() for p in a_leaves]
-        a_new, a_state_new = optim.clip_adam_step(a_old, a_grads, self.actor_opt_state,
-                                                  self.actor_lr, self.max_grad_norm,
-                                                  self._norm(a_grads, actor_sub))
-        # The KL gate: a step whose approximate KL passes 1.5 target_kl is
-        # rejected whole, the actor's optimizer state included.
-        if self.target_kl <= 0:
-            a_applied, a_state = a_new, a_state_new
-        else:
-            gate = kl.detach() <= 1.5 * self.target_kl
-            a_applied = optim.select(gate, a_new, a_old)
-            a_state = optim.select(gate, a_state_new, self.actor_opt_state)
-        c_new, self.critic_opt_state = optim.clip_adam_step(
-            [p.detach() for p in c_leaves], c_grads, self.critic_opt_state,
-            self.critic_lr, self.max_grad_norm, self._norm(c_grads, self.params['critic']))
-        self.actor_opt_state = a_state
-        self.params = {**tree_unflatten(actor_sub, a_applied),
-                       'critic': tree_unflatten(self.params['critic'], c_new)}
+        with annotate('ppo.update.optim'):
+            a_old = [p.detach() for p in a_leaves]
+            a_new, a_state_new = optim.clip_adam_step(a_old, a_grads, self.actor_opt_state,
+                                                      self.actor_lr, self.max_grad_norm,
+                                                      self._norm(a_grads, actor_sub))
+            # The KL gate: a step whose approximate KL passes 1.5 target_kl is
+            # rejected whole, the actor's optimizer state included.
+            if self.target_kl <= 0:
+                a_applied, a_state = a_new, a_state_new
+            else:
+                gate = kl.detach() <= 1.5 * self.target_kl
+                a_applied = optim.select(gate, a_new, a_old)
+                a_state = optim.select(gate, a_state_new, self.actor_opt_state)
+            c_new, self.critic_opt_state = optim.clip_adam_step(
+                [p.detach() for p in c_leaves], c_grads, self.critic_opt_state,
+                self.critic_lr, self.max_grad_norm, self._norm(c_grads, self.params['critic']))
+            self.actor_opt_state = a_state
+            self.params = {**tree_unflatten(actor_sub, a_applied),
+                           'critic': tree_unflatten(self.params['critic'], c_new)}
         return losses
 
     def update_tensors(self, batch: Dict[str, torch.Tensor], gen: torch.Generator = None,
@@ -291,16 +293,22 @@ class PPOAgent:
             loc = rows[idx]
             return {**{k: v[loc] for k, v in batch.items()}, 'own': own_all[idx][:, None]}
 
-        epoch_losses = []
-        for epoch in range(int(self.opt_epochs)):
-            if perms is not None:
-                perm = torch.tensor(np.asarray(perms[epoch]), device=self.device)
-            else:
-                perm = torch.randperm(m, generator=gen, device=self.device)[:used]
-            losses = [self._minibatch_step(minibatch(perm[i * mb:(i + 1) * mb]))
-                      for i in range(num_mb)]
-            epoch_losses.append(torch.stack(losses).mean(dim=0))
-        return torch.stack(epoch_losses).mean(dim=0)
+        def step(idx):
+            # The span holds the row gather, both losses and their gradients;
+            # the step's optimizer part is its nested ``ppo.update.optim``.
+            with annotate('ppo.update.grad'):
+                return self._minibatch_step(minibatch(idx))
+
+        with annotate('ppo.update'):
+            epoch_losses = []
+            for epoch in range(int(self.opt_epochs)):
+                if perms is not None:
+                    perm = torch.tensor(np.asarray(perms[epoch]), device=self.device)
+                else:
+                    perm = torch.randperm(m, generator=gen, device=self.device)[:used]
+                losses = [step(perm[i * mb:(i + 1) * mb]) for i in range(num_mb)]
+                epoch_losses.append(torch.stack(losses).mean(dim=0))
+            return torch.stack(epoch_losses).mean(dim=0)
 
     def update(self, batch, gen=None, perms=None) -> Dict[str, float]:
         """``update_tensors``, with the mean losses read back once."""

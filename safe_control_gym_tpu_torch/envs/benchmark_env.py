@@ -62,6 +62,7 @@ from safe_control_gym_tpu_torch.envs import disturbances as disturbances_mod
 from safe_control_gym_tpu_torch.envs.spaces import Box
 from safe_control_gym_tpu_torch.envs.trajectories import generate_trajectory
 from safe_control_gym_tpu_torch.utils.device import resolve_device
+from safe_control_gym_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ['Task', 'Cost', 'Environment', 'EnvState', 'StepOut', 'FuncEnv', 'BenchmarkEnv']
 
@@ -121,6 +122,15 @@ class StepOut:
         return dataclasses.replace(self, **changes)
 
 
+def _config_tensor(x, device):
+    """``x``, a number or list from the config, as float32 on ``device``. To a
+    CUDA device that is a copy the host waits on until the card's queue has
+    drained: one ``host_reads``."""
+    if device.type == 'cuda':
+        count('host_reads')
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
 def _compile_rand_sampler(rand_info: Dict[str, Dict], names) -> Callable:
     """Compile a {name: {distrib, args/kwargs}} spec into an additive sampler
     ``fn(gen, base) -> dict``: each named entry of ``base`` (a tensor) plus one
@@ -142,8 +152,8 @@ def _compile_rand_sampler(rand_info: Dict[str, Dict], names) -> Callable:
                 low = kwargs.get('low', args[0] if args else 0.0)
                 high = kwargs.get('high', args[1] if len(args) > 1 else 1.0)
                 u = torch.rand(b.shape, generator=gen, device=gen.device)
-                low = torch.as_tensor(low, dtype=torch.float32, device=gen.device)
-                high = torch.as_tensor(high, dtype=torch.float32, device=gen.device)
+                low = _config_tensor(low, gen.device)
+                high = _config_tensor(high, gen.device)
                 draw = torch.maximum(low, u * (high - low) + low)
             elif distrib in ('normal', 'standard_normal', 'gaussian'):
                 loc = kwargs.get('loc', args[0] if args else 0.0)
@@ -151,8 +161,7 @@ def _compile_rand_sampler(rand_info: Dict[str, Dict], names) -> Callable:
                 draw = loc + scale * torch.randn(b.shape, generator=gen,
                                                  device=gen.device)
             elif distrib == 'choice':
-                options = torch.as_tensor(args[0], dtype=torch.float32,
-                                          device=gen.device)
+                options = _config_tensor(args[0], gen.device)
                 idx = torch.randint(0, options.shape[0], b.shape, generator=gen,
                                     device=gen.device)
                 draw = options[idx]
@@ -625,26 +634,27 @@ class BenchmarkEnv:
             disturbance state, adversary buffer and randomized parameters come
             from a new ``reset_batch`` draw, or from ``fresh``, a ``(EnvState,
             obs)`` of the batch's size drawn beforehand."""
-            n = est.state.shape[0]
-            drawn = dict(drawn or {})
-            for ch in stochastic:
-                if ch not in drawn:
-                    drawn[ch] = dists[ch].draw(gen, n)
-            est, out = step(est, actions, drawn=drawn)
-            fresh, fresh_obs = reset_batch(gen, n) if fresh is None else fresh
-            done_col = out.done[:, None]
-            est = est.replace(
-                state=torch.where(done_col, fresh.state, est.state),
-                ctrl_step=torch.where(out.done, fresh.ctrl_step, est.ctrl_step),
-                dist_obs=torch.where(done_col, fresh.dist_obs, est.dist_obs),
-                dist_act=torch.where(done_col, fresh.dist_act, est.dist_act),
-                dist_dyn=torch.where(done_col, fresh.dist_dyn, est.dist_dyn),
-                adv_action=torch.where(done_col, fresh.adv_action, est.adv_action))
-            if randomized_prop:
-                est = est.replace(dyn_params=_select_params(out.done, fresh.dyn_params,
-                                                            est.dyn_params))
-            obs = torch.where(done_col, fresh_obs, out.obs)
-            return est, out, obs
+            with annotate('env.step_autoreset'):
+                n = est.state.shape[0]
+                drawn = dict(drawn or {})
+                for ch in stochastic:
+                    if ch not in drawn:
+                        drawn[ch] = dists[ch].draw(gen, n)
+                est, out = step(est, actions, drawn=drawn)
+                fresh, fresh_obs = reset_batch(gen, n) if fresh is None else fresh
+                done_col = out.done[:, None]
+                est = est.replace(
+                    state=torch.where(done_col, fresh.state, est.state),
+                    ctrl_step=torch.where(out.done, fresh.ctrl_step, est.ctrl_step),
+                    dist_obs=torch.where(done_col, fresh.dist_obs, est.dist_obs),
+                    dist_act=torch.where(done_col, fresh.dist_act, est.dist_act),
+                    dist_dyn=torch.where(done_col, fresh.dist_dyn, est.dist_dyn),
+                    adv_action=torch.where(done_col, fresh.adv_action, est.adv_action))
+                if randomized_prop:
+                    est = est.replace(dyn_params=_select_params(out.done, fresh.dyn_params,
+                                                                est.dyn_params))
+                obs = torch.where(done_col, fresh_obs, out.obs)
+                return est, out, obs
 
         self.func = FuncEnv(reset_batch, step, step_autoreset, draw_noise,
                             obs_dim=int(np.prod(self.observation_space.shape)),

@@ -26,6 +26,13 @@ package's keys, ``path`` included, and ``kernel_refusal``, the gate's
 message, where the gates sent a CUDA env to the per-step path (the 1D quad,
 a physics mode other than 'pyb', randomized inertial properties, ...).
 
+While a profiler runs, a call is the span ``fused_eval`` of
+``utils/profiling.py``, with its phases nested in it: ``fused_eval.prep``
+(the spec; on the kernel path also the gates and ``kernel_inputs``),
+``fused_eval.launch`` (each K4/K5 launch) and ``fused_eval.read`` (the
+kernel path's per-env reads and the synchronizations around its timed
+launch, each counted as ``host_reads``).
+
     ctrl = make('sac', partial(make, 'quadrotor', device='cuda', **task_config),
                 **algo_config)
     ctrl.load('examples/rl/models/sac/sac_model_quadrotor_3D_stab.pt')
@@ -38,6 +45,8 @@ import time
 
 import numpy as np
 import torch
+
+from safe_control_gym_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ['evaluate_policy_fused', 'kernel_inputs', 'policy_eval_spec']
 
@@ -158,6 +167,15 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _read_sync(dev):
+    """``_sync`` around the kernel path's timed launch: a
+    ``fused_eval.read`` that the host waits on."""
+    if dev.type == 'cuda':
+        with annotate('fused_eval.read'):
+            torch.cuda.synchronize(dev)
+            count('host_reads')
+
+
 def kernel_inputs(spec, env, batch, seed, stochastic, gates=None):
     """``(state0, cfg, kwargs)`` of the policy-in-kernel path's launch: the
     ``batch`` first states drawn from ``seed``, the env's cfg vector, and the
@@ -180,20 +198,25 @@ def kernel_inputs(spec, env, batch, seed, stochastic, gates=None):
 
 def _kernel_eval(spec, env, batch, n_steps, seed, stochastic, n_reps, gates=None):
     """The policy-in-kernel path: one K4 or K5 launch for the whole rollout."""
-    _, roll_fn, _ = _kernel_tables(env)
-    state0, cfg, kw = kernel_inputs(spec, env, batch, seed, stochastic, gates)
+    with annotate('fused_eval.prep'):
+        _, roll_fn, _ = _kernel_tables(env)
+        state0, cfg, kw = kernel_inputs(spec, env, batch, seed, stochastic, gates)
     dev = env.device
     constrained = kw['constrained']
-    out = roll_fn(state0, cfg, seed, n_steps=n_steps, **kw)   # warm-up and values
-    per_env = {k: out[k].cpu().numpy() for k in ('reward_sum', 'done_count')}
-    if constrained:
-        per_env['violation_count'] = out['violation_count'].cpu().numpy()
+    with annotate('fused_eval.launch'):
+        out = roll_fn(state0, cfg, seed, n_steps=n_steps, **kw)   # warm-up and values
+    with annotate('fused_eval.read'):
+        per_env = {k: out[k].cpu().numpy() for k in ('reward_sum', 'done_count')}
+        if constrained:
+            per_env['violation_count'] = out['violation_count'].cpu().numpy()
+        count('host_reads', len(per_env))
     best = float('inf')
     for r in range(n_reps):
-        _sync(dev)
+        _read_sync(dev)
         t0 = time.perf_counter()
-        roll_fn(state0, cfg, seed + 1 + r, n_steps=n_steps, **kw)
-        _sync(dev)
+        with annotate('fused_eval.launch'):
+            roll_fn(state0, cfg, seed + 1 + r, n_steps=n_steps, **kw)
+        _read_sync(dev)
         best = min(best, time.perf_counter() - t0)
     totals = (float(per_env['reward_sum'].sum()), float(per_env['done_count'].sum()),
               float(per_env['violation_count'].sum()) if constrained else 0.0, None)
@@ -279,45 +302,48 @@ def evaluate_policy_fused(ctrl, env=None, batch=1024, n_steps=4096, seed=0,
     gates refused) and ``per_env`` if asked.
     """
     env = env if env is not None else ctrl.env
-    spec = policy_eval_spec(ctrl, env, stochastic=stochastic)
-    path = refusal = None
-    if mesh is not None:
-        if use_kernel:
-            raise ValueError('fused eval: mesh sharding runs the per-step path (the rollout '
-                             'kernel is per-device)')
-        from safe_control_gym_tpu_torch.parallel.sharding import EnvShards
-        totals, per_env, best = _per_step_eval(spec, env, batch, n_steps, seed, n_reps,
-                                               EnvShards(mesh, axis_name, batch, env.device))
-        path = 'per-step-scan-sharded'
-    elif use_kernel is None:
-        if env.device.type == 'cuda':
-            try:
-                gates = _kernel_gates(spec, env, stochastic)
-            except ValueError as exc:
-                gates, refusal = None, str(exc)   # outside coverage: the per-step path
-            if gates is not None:           # errors of the kernel run propagate
-                totals, per_env, best = _kernel_eval(spec, env, batch, n_steps, seed,
-                                                     stochastic, n_reps, gates=gates)
-                path = 'policy-in-kernel'
-    elif use_kernel:
-        totals, per_env, best = _kernel_eval(spec, env, batch, n_steps, seed,
-                                             stochastic, n_reps)
-        path = 'policy-in-kernel'
-    if path is None:
-        totals, per_env, best = _per_step_eval(spec, env, batch, n_steps, seed, n_reps)
-        path = 'per-step-scan'
-    rew, episodes, violations, mse = totals
-    total_steps = batch * n_steps
-    out = dict(path=path, total_steps=total_steps, episodes=int(episodes),
-               ep_return_mean=rew / max(episodes, 1.0),
-               ep_length_mean=total_steps / max(episodes, 1.0),
-               steps_per_sec=total_steps / best)
-    if env.constraints is not None and bool(env.constraints.constraints):
-        out['total_violations'] = int(violations)
-    if mse is not None:
-        out['rmse'] = float(np.sqrt(mse / total_steps))
-    if refusal is not None:
-        out['kernel_refusal'] = refusal
-    if return_per_env:
-        out['per_env'] = per_env
-    return out
+    with annotate('fused_eval'):
+        with annotate('fused_eval.prep'):
+            spec = policy_eval_spec(ctrl, env, stochastic=stochastic)
+        path = refusal = None
+        if mesh is not None:
+            if use_kernel:
+                raise ValueError('fused eval: mesh sharding runs the per-step path (the rollout '
+                                 'kernel is per-device)')
+            from safe_control_gym_tpu_torch.parallel.sharding import EnvShards
+            totals, per_env, best = _per_step_eval(spec, env, batch, n_steps, seed, n_reps,
+                                                   EnvShards(mesh, axis_name, batch, env.device))
+            path = 'per-step-scan-sharded'
+        elif use_kernel is None:
+            if env.device.type == 'cuda':
+                try:
+                    with annotate('fused_eval.prep'):
+                        gates = _kernel_gates(spec, env, stochastic)
+                except ValueError as exc:
+                    gates, refusal = None, str(exc)   # outside coverage: the per-step path
+                if gates is not None:           # errors of the kernel run propagate
+                    totals, per_env, best = _kernel_eval(spec, env, batch, n_steps, seed,
+                                                         stochastic, n_reps, gates=gates)
+                    path = 'policy-in-kernel'
+        elif use_kernel:
+            totals, per_env, best = _kernel_eval(spec, env, batch, n_steps, seed,
+                                                 stochastic, n_reps)
+            path = 'policy-in-kernel'
+        if path is None:
+            totals, per_env, best = _per_step_eval(spec, env, batch, n_steps, seed, n_reps)
+            path = 'per-step-scan'
+        rew, episodes, violations, mse = totals
+        total_steps = batch * n_steps
+        out = dict(path=path, total_steps=total_steps, episodes=int(episodes),
+                   ep_return_mean=rew / max(episodes, 1.0),
+                   ep_length_mean=total_steps / max(episodes, 1.0),
+                   steps_per_sec=total_steps / best)
+        if env.constraints is not None and bool(env.constraints.constraints):
+            out['total_violations'] = int(violations)
+        if mse is not None:
+            out['rmse'] = float(np.sqrt(mse / total_steps))
+        if refusal is not None:
+            out['kernel_refusal'] = refusal
+        if return_per_env:
+            out['per_env'] = per_env
+        return out
